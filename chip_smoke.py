@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's batched curve-fit path once on one NVIDIA GPU.
+"""Drive the PyTorch port on one NVIDIA GPU: the batched curve-fit path,
+the Gram kernel and the row-sharded Gram, and the single-fit dense path.
 
     python3 chip_smoke.py
 
@@ -12,19 +13,42 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    over a full solve. Limits: float64 median relative alpha difference
    <= 1e-12 and iterations/flags equal on >= 99.9% of fits; float32
    <= 1e-6 and >= 99%.
-3. The main path: the bench.py workload (B = 131072 exp_saturation fits on
-   a shared 64-point grid, float32, numpy default_rng(0), starts 0.7-1.4x
-   the truth) through curve_fit_batch(separable=True, gridded=True,
-   fused="ssr", LevenbergMarquardt(Cholesky()), min_converged_fraction=0.99).
-   Limits: >= 99% converged; median relative error of the full minimizer
-   against the truth <= 1e-4.
+3. The plain route: the bench.py workload (B = 131072 exp_saturation fits
+   on a shared 64-point grid, float32, numpy default_rng(0), starts
+   0.7-1.4x the truth) through curve_fit_batch(separable=True,
+   gridded=True, fused="ssr", LevenbergMarquardt(Cholesky()),
+   min_converged_fraction=0.99). Limits: 0 kernel launches (counter reset
+   just before); >= 99% converged; median relative error of the full
+   minimizer against the truth <= 1e-4.
 4. The kernel route: the same data through varpro_lm_p1_kernel_solve.
-   Limits: kernel launched at least once in phases 3-4 (counter reset just
-   before phase 3); >= 99% converged; median relative alpha difference
-   from phase 3 <= 1e-5.
+   Limits: kernel launched at least once (counter reset just before);
+   >= 99% converged; median relative alpha difference from phase 3 <= 1e-5.
 5. Times, after warm-up, with torch.cuda.synchronize() around each timed
    region: the routes of phases 3 and 4 and the plain reference route, and
    one K = 8 launch of the kernel against its plain version (CUDA events).
+6. The Gram kernel (gram_and_rhs(use_pallas=True)) and its plain version
+   against a float64 Gram on the card, at (2^20, n) for n = 256, 128, 64,
+   32, at config #3's (8192, 1024), at the tail shapes (1300, 32) and
+   (100, 32), float32, and at (2^20, 128) in bfloat16. Limit: every entry
+   within 1e-5 of its Cauchy-Schwarz scale (bfloat16: plus 2^-8, the
+   rounding of the result). A TF32 control (J and y rounded to TF32's 10
+   mantissa bits, then the plain float32 Gram) must exceed that limit at
+   every float32 shape with m <= 8192, so that the check would catch a
+   kernel that reads J in TF32. Times (CUDA-event medians of 20) at every
+   shape with m >= 8192.
+7. The row-sharded Gram on a one-rank NCCL group at (2^20, 256): equal to
+   gram_and_rhs(use_pallas=True) bit for bit, the kernel's counter moved
+   (reset just before), and the normal-equations solution within 1e-4
+   relative of float64 lstsq.
+8. The single-fit path: (a) Rosenbrock through optimize (Dogleg(QR())),
+   float64, converged within 1e-6 of [1, 1]; (b) BASELINE.json config #3
+   (benchmarks/bench_bounded_dogleg.py:29-50) through solve(Dogleg(
+   Cholesky()), lower=0.2, 30 iterations, tolerances 0) in float64 and
+   float32: finite, feasible, float32 final ssr within 1% of float64, no
+   Gram kernel launch in 8a-8b (the solvers' Gram is plain), Dogleg
+   iterations/s; (c) config #3's J at the float32 final iterate through the
+   Gram kernel and its plain version, errors (phase 6's limit, with its
+   TF32 control) and times.
 
 The second-to-last line is a JSON object describing each kernel; the last
 is {"ok": true, "device": {...}}. The script needs one CUDA card and
@@ -185,6 +209,8 @@ def main():
     kv.launches = 0
     print(f"== phase 3: curve_fit_batch on the card (B={B_MAIN}, m={M}, float32)")
     t_main, raw = sync_time(run_main)
+    check(kv.launches == 0,
+          f"phase 3 (the plain route) launched kernel_varpro {kv.launches} times, 0 expected")
     conv = raw["converged"].double().mean().item()
     err = rel(raw["minimizer"], truth).median().item()
     print(f"  converged {conv:.6f}, median rel error vs truth {err:.3e}, "
@@ -196,6 +222,7 @@ def main():
     check(raw["minimizer"].shape == (B_MAIN, 2), "phase 3 minimizer shape")
 
     print("== phase 4: kernel route varpro_lm_p1_kernel_solve on the card")
+    kv.launches = 0
     t_kern, out = sync_time(run_kernel)
     main_launches = kv.launches
     conv_k = out["converged"].double().mean().item()
@@ -204,7 +231,7 @@ def main():
     print(f"  launches {main_launches}, converged {conv_k:.6f}, median alpha "
           f"rel diff from phase 3 {d_alpha:.3e}, median alpha rel error vs "
           f"truth {err_k:.3e}, first call {t_kern:.3f} s")
-    check(main_launches > 0, "kernel launched on the main path")
+    check(main_launches > 0, "kernel launched on the kernel route")
     check(conv_k >= 0.99, "phase 4 >= 99% converged")
     check(d_alpha <= 1e-5, "phase 4 median alpha rel diff from phase 3 <= 1e-5")
 
@@ -253,6 +280,10 @@ def main():
     print(f"  one launch K={K}: kernel {ms_k:.4f} ms, plain version {ms_r:.4f} ms "
           f"(median of 20, CUDA events) [{smi}]")
 
+    gram_cmp = phase_gram(dev, smi)
+    gram_launches = phase_sharded_gram(dev)
+    phase_single_fit(dev, smi)
+
     print(json.dumps({"kernels": [{
         "name": "kernel_varpro",
         "route": "cuda",
@@ -262,9 +293,268 @@ def main():
         "max_abs_err": max_abs,
         "ms": ms_k,
         "plain_ms": ms_r,
+    }, {
+        "name": "gram",
+        "route": "cuda",
+        "source": "leastsquaresoptim_jl_torch/csrc/gram.cu",
+        "replaces": "leastsquaresoptim_jl_tpu/ops/gram.py:71",
+        "launches": gram_launches,
+        **gram_cmp,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def event_ms(fn, n=20, warmup=3):
+    """Median CUDA-event time of ``fn()`` in ms over ``n`` runs."""
+    for _ in range(warmup):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    for i in range(n):
+        starts[i].record()
+        fn()
+        ends[i].record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
+def gram_errors(G, b, G64, b64, y64):
+    """Largest |G - G64| / sqrt(G64_ii G64_jj) and |b - b64| /
+    (sqrt(G64_ii) ||y||): each entry's error against the Cauchy-Schwarz
+    bound of its own sum of products."""
+    d = torch.sqrt(torch.diagonal(G64))
+    eg = ((G.double() - G64).abs() / (d[:, None] * d[None, :])).max().item()
+    eb = ((b.double() - b64).abs() / (d * torch.linalg.vector_norm(y64))).max().item()
+    return eg, eb
+
+
+# Phase 6 shapes: bench_gram.py's (2^20, 256) and the narrower widths the
+# kernel takes, config #3's J, and the tail and all-tail cases of
+# tests/test_gram.py.
+GRAM_SHAPES = [
+    ((1_048_576, 256), torch.float32), ((1_048_576, 128), torch.float32),
+    ((1_048_576, 64), torch.float32), ((1_048_576, 32), torch.float32),
+    ((8192, 1024), torch.float32), ((1300, 32), torch.float32),
+    ((100, 32), torch.float32), ((1_048_576, 128), torch.bfloat16),
+]
+# Sound float32 sums, the kernel's and cuBLAS's, came within 1.5e-6 on
+# every shape here (one NVIDIA H100 80GB HBM3, 700 W). Rounding J and y to
+# TF32 adds about 4e-4 / sqrt(m) per entry: the control measured 2.1e-4 at
+# (100, 32), 6.3e-5 at (1300, 32) and 2.9e-5 at (8192, 1024), but only
+# 4.0e-6 to 6.8e-6 at m = 2^20, so the limit separates the two up to
+# m = 8192.
+GRAM_LIMIT = 1e-5
+TF32_CONTROL_MAX_M = 8192
+# bfloat16 results are rounded to bfloat16 (2^-8 relative at most, and
+# |G_ij| <= sqrt(G_ii G_jj)), so that rounding adds to the limit there.
+BF16_ROUNDING = 2.0 ** -8
+
+
+def tf32_round(x):
+    """A float32 tensor rounded to nearest even on TF32's 10 mantissa bits:
+    what a tensor-core kernel that reads it in TF32 multiplies."""
+    b = x.contiguous().view(torch.int32)
+    b = (b + 0x0FFF + ((b >> 13) & 1)) & -0x2000
+    return b.view(torch.float32)
+
+
+def check_tf32_control(J, y, G64, b64, what):
+    """The plain Gram of TF32-rounded J and y against the float64 Gram of
+    J and y: it must exceed GRAM_LIMIT."""
+    from leastsquaresoptim_jl_torch.ops import gram
+
+    Gt, bt = gram._gram_reference(tf32_round(J), tf32_round(y))
+    errs = gram_errors(Gt, bt, G64, b64, y.double())
+    print(f"  {what}: TF32 control G err {errs[0]:.3e}, J'y err {errs[1]:.3e}")
+    return errs
+
+
+def phase_gram(dev, smi):
+    """Phase 6: the Gram kernel and its plain version against a float64
+    Gram on the card; times at every full-size shape."""
+    from leastsquaresoptim_jl_torch.ops import gram
+
+    print("== phase 6: Gram kernel vs plain version vs float64 on the card")
+    rng = np.random.default_rng(6)
+    main = None
+    for (m, n), dt in GRAM_SHAPES:
+        J = torch.tensor(rng.standard_normal((m, n), dtype=np.float32), device=dev).to(dt)
+        y = torch.tensor(rng.standard_normal(m, dtype=np.float32), device=dev).to(dt)
+        G64, b64 = J.double().mT @ J.double(), J.double().mT @ y.double()
+        Gk, bk = gram.gram_and_rhs(J, y, use_pallas=True)
+        Gr, br = gram._gram_reference(J, y)
+        torch.cuda.synchronize()
+        check(Gk.shape == (n, n) and bk.shape == (n,) and Gk.dtype == dt
+              and bool(torch.isfinite(Gk).all() & torch.isfinite(bk).all()),
+              f"({m}, {n}) {dt}: finite ({n}, {n}) and ({n},) in {dt}")
+        errs_k = gram_errors(Gk, bk, G64, b64, y.double())
+        errs_r = gram_errors(Gr, br, G64, b64, y.double())
+        limit = GRAM_LIMIT + (BF16_ROUNDING if dt == torch.bfloat16 else 0.0)
+        print(f"  ({m}, {n}) {dt}: kernel G err {errs_k[0]:.3e}, J'y err "
+              f"{errs_k[1]:.3e}; plain G err {errs_r[0]:.3e}, J'y err {errs_r[1]:.3e}")
+        check(max(errs_k) <= limit and max(errs_r) <= limit,
+              f"({m}, {n}) {dt}: kernel and plain within {limit:.3g} of float64")
+        if dt == torch.float32:
+            errs_t = check_tf32_control(J, y, G64, b64, f"({m}, {n}) {dt}")
+            if m <= TF32_CONTROL_MAX_M:
+                check(max(errs_t) > limit,
+                      f"({m}, {n}): the TF32 control exceeds the limit {limit:g}")
+        if m >= 8192:
+            ms_k = event_ms(lambda: gram.gram_and_rhs(J, y, use_pallas=True))
+            ms_r = event_ms(lambda: gram._gram_reference(J, y))
+            nbytes = m * n * J.element_size()
+            flops = 2.0 * m * n * n
+            print(f"  ({m}, {n}) {dt}: kernel {ms_k:.4f} ms "
+                  f"({nbytes / ms_k / 1e6:.1f} GB/s, {flops / ms_k / 1e9:.2f} TFLOP/s), "
+                  f"plain {ms_r:.4f} ms ({nbytes / ms_r / 1e6:.1f} GB/s, "
+                  f"{flops / ms_r / 1e9:.2f} TFLOP/s) (median of 20, CUDA events; "
+                  f"TFLOP/s counts 2 m n^2) [{smi}]")
+            if (m, n, dt) == (1_048_576, 256, torch.float32):
+                main = dict(max_abs_err=(Gk - Gr).abs().max().item(),
+                            ms=ms_k, plain_ms=ms_r)
+        del J, y, G64, b64
+    return main
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded_gram(dev):
+    """Phase 7: the row-sharded Gram on a one-rank NCCL group; returns the
+    Gram kernel's launches in it."""
+    import torch.distributed as dist
+
+    from leastsquaresoptim_jl_torch import parallel
+    from leastsquaresoptim_jl_torch.ops import gram
+    from leastsquaresoptim_jl_torch.solver.cholesky import solve_spd_system
+
+    m, n = 1_048_576, 256
+    print(f"== phase 7: sharded_gram_and_rhs on a one-rank NCCL group ({m}, {n}) float32")
+    rng = np.random.default_rng(7)
+    x_true = rng.standard_normal(n)
+    A = rng.standard_normal((m, n), dtype=np.float32)
+    J = torch.tensor(A, device=dev)
+    y = torch.tensor((A @ x_true + 0.1 * rng.standard_normal(m)).astype(np.float32),
+                     device=dev)
+    parallel.initialize_multihost(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+    try:
+        print(f"  backend {dist.get_backend()}, world size {dist.get_world_size()}")
+        gram.launches = 0
+        G, b = parallel.sharded_gram_and_rhs(J, y, use_pallas=True)
+        torch.cuda.synchronize()
+        launches = gram.launches
+        G1, b1 = gram.gram_and_rhs(J, y, use_pallas=True)
+        check(launches > 0, f"Gram kernel launched {launches} time(s) on the sharded path")
+        check(torch.equal(G, G1) and torch.equal(b, b1),
+              "sharded Gram equals gram_and_rhs(use_pallas=True) bit for bit (one rank)")
+        x = solve_spd_system(G, b)
+        x64 = torch.linalg.lstsq(J.double(), y.double().unsqueeze(-1)).solution.squeeze(-1)
+        err = (torch.linalg.vector_norm(x.double() - x64)
+               / torch.linalg.vector_norm(x64)).item()
+        print(f"  solve_spd_system(G, b) vs float64 lstsq: relative error {err:.3e}")
+        check(err <= 1e-4, "least-squares solution within 1e-4 of float64 lstsq")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def config3_problem(dev, dtype):
+    """BASELINE.json config #3 as benchmarks/bench_bounded_dogleg.py:29-50
+    builds it (m = 8192, n = 1024, lower bound 0.2, x0 = 0.6)."""
+    from leastsquaresoptim_jl_torch import least_squares_problem
+
+    m, n = 8192, 1024
+    rng = np.random.default_rng(0)
+    A = torch.tensor(rng.standard_normal((m, n)) / np.sqrt(n), dtype=dtype, device=dev)
+    x_true = torch.tensor(np.abs(rng.standard_normal(n)) * 0.5, dtype=dtype, device=dev)
+    y = torch.tanh(A @ x_true) + 0.01 * torch.tensor(
+        rng.standard_normal(m), dtype=dtype, device=dev)
+
+    def residual(x):
+        return torch.tanh(A @ x) - y
+
+    x0 = torch.full((n,), 0.6, dtype=dtype, device=dev)
+    lower = torch.full((n,), 0.2, dtype=dtype, device=dev)
+    return least_squares_problem(residual, x0, output_length=m), lower
+
+
+def phase_single_fit(dev, smi):
+    """Phase 8: the single-fit path (optimize / solve, Dogleg over QR and
+    Cholesky, bounds) and config #3's J through the Gram kernel."""
+    from leastsquaresoptim_jl_torch import Cholesky, Dogleg, Options, optimize, solve
+    from leastsquaresoptim_jl_torch.ops import gram
+
+    print("== phase 8a: Rosenbrock through optimize (Dogleg(QR()) by default), float64")
+    gram.launches = 0
+
+    def rosenbrock(x):
+        return torch.stack([1.0 - x[0], 100.0 * (x[1] - x[0] ** 2)])
+
+    r = optimize(rosenbrock, torch.zeros(2, dtype=torch.float64, device=dev))
+    err = float(np.abs(r.minimizer - 1.0).max())
+    print(f"  {r.optimizer}: converged {r.converged}, iterations {r.iterations}, "
+          f"minimizer {r.minimizer.tolist()}, max |x - 1| {err:.3e}")
+    check(r.converged and err <= 1e-6, "Rosenbrock converged within 1e-6 of [1, 1]")
+
+    opts = Options(iterations=30, x_tol=0.0, f_tol=0.0, g_tol=0.0)
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        problem, lower = config3_problem(dev, dt)
+        print(f"== phase 8b: config #3 bounded Dogleg(Cholesky()) (8192, 1024) {dt}")
+
+        def run():
+            return solve(problem, Dogleg(Cholesky()), lower=lower, options=opts)
+
+        secs, raw = sync_time(run)
+        x = raw["minimizer"]
+        ssr = float(raw["ssr"])
+        its = int(raw["iterations"])
+        print(f"  iterations {its}, fresh linearizations {int(raw['g_calls'])}, "
+              f"ssr {ssr!r}, min x {x.min().item()!r}, "
+              f"{int((x <= lower).sum())} of 1024 on the bound, first call {secs:.3f} s")
+        check(bool(torch.isfinite(x).all()) and x.shape == (1024,), f"{dt} finite (1024,)")
+        check(bool((x >= lower).all()), f"{dt} every coordinate >= 0.2")
+        out[dt] = (problem, raw, ssr, its, run)
+    ssr64, ssr32 = out[torch.float64][2], out[torch.float32][2]
+    rel_ssr = abs(ssr32 - ssr64) / ssr64
+    print(f"  float32 ssr vs float64: relative difference {rel_ssr:.3e}")
+    check(rel_ssr <= 1e-2, "float32 final ssr within 1% of float64")
+    check(gram.launches == 0,
+          f"the solvers' Gram stays plain: {gram.launches} Gram kernel launches in 8a-8b")
+
+    _, _, _, its, run = out[torch.float32]
+    reps = 3
+    ts = [sync_time(run)[0] for _ in range(reps)]
+    print(f"  Dogleg iterations/s (float32, {its} iterations): "
+          f"{its / min(ts):.2f} (best of {reps}), {its / float(np.median(ts)):.2f} "
+          f"(median) [{smi}]")
+
+    print("== phase 8c: config #3's J at the final iterate through the Gram kernel")
+    for dt in (torch.float32,):
+        problem, raw = out[dt][0], out[dt][1]
+        r, J = problem.res_jac_fn(raw["minimizer"])
+        J = J.contiguous()
+        G64, b64 = J.double().mT @ J.double(), J.double().mT @ r.double()
+        Gk, bk = gram.gram_and_rhs(J, r, use_pallas=True)
+        Gr, br = gram._gram_reference(J, r)
+        ek, er = gram_errors(Gk, bk, G64, b64, r.double()), gram_errors(Gr, br, G64, b64, r.double())
+        print(f"  {dt}: kernel G err {ek[0]:.3e}, J'r err {ek[1]:.3e}; plain G err "
+              f"{er[0]:.3e}, J'r err {er[1]:.3e}")
+        check(max(ek) <= GRAM_LIMIT and max(er) <= GRAM_LIMIT,
+              f"{dt} kernel and plain within {GRAM_LIMIT:g} of float64")
+        et = check_tf32_control(J, r, G64, b64, f"{dt}")
+        check(max(et) > GRAM_LIMIT,
+              f"{dt}: the TF32 control exceeds the limit {GRAM_LIMIT:g}")
+        ms_k = event_ms(lambda: gram.gram_and_rhs(J, r, use_pallas=True))
+        ms_r = event_ms(lambda: gram._gram_reference(J, r))
+        print(f"  {dt}: kernel {ms_k:.4f} ms, plain {ms_r:.4f} ms (median of 20, "
+              f"CUDA events) [{smi}]")
 
 
 if __name__ == "__main__":

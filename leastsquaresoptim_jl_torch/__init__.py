@@ -10,16 +10,19 @@ batched VarPro curve-fit path (``curve_fit_batch`` with
 CUDA C++ for sm_90a.
 """
 
-from . import config
+from . import config, parallel
+from .api import optimize, optimize_problem, solve
 from .batch import solve_batch
 from .models import curve_fit_batch
 from .optimizer.base import Dogleg, LevenbergMarquardt
 from .optimizer.common import Options
 from .problem import LeastSquaresProblem, least_squares_problem
+from .result import IsFiniteError, LeastSquaresResult
 from .solver.base import LSMR, QR, Cholesky
 
 __all__ = [
-    "config", "solve_batch", "curve_fit_batch", "Dogleg",
-    "LevenbergMarquardt", "Options", "LeastSquaresProblem",
-    "least_squares_problem", "LSMR", "QR", "Cholesky",
+    "config", "parallel", "solve", "optimize", "optimize_problem",
+    "solve_batch", "curve_fit_batch", "Dogleg", "LevenbergMarquardt",
+    "Options", "LeastSquaresProblem", "least_squares_problem",
+    "LeastSquaresResult", "IsFiniteError", "LSMR", "QR", "Cholesky",
 ]

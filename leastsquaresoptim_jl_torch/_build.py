@@ -1,9 +1,10 @@
 """Build and load the package's hand-written CUDA kernels.
 
-At first use, one ``nvcc`` call compiles every ``csrc/*.cu`` of this
-package for Hopper (``sm_90a``) into a shared library with a plain C
-interface, under ``build/torch_kernels/`` beside the package, named by a
-hash of the sources and flags (an unchanged tree reuses its library). The
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package for
+Hopper (``sm_90a``), one process per source, all started together, and
+links the objects into a shared library with a plain C interface, under
+``build/torch_kernels/`` beside the package, named by a hash of the
+sources and flags (an unchanged tree reuses its library). The
 library is loaded with ``ctypes``; pointers and the stream are passed as
 ``c_void_p``. Nothing is fetched and nothing outside the package's
 ``csrc/`` is compiled. A failed build raises with nvcc's output.
@@ -28,15 +29,18 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 # name -> argtypes of the C entry points in csrc/
 _SIGNATURES = {
     "lso_kernel_varpro_f32": [_P, _P, _P, _I, _I, _I] + [ctypes.c_float] * 7 + [_I, _I, _P],
     "lso_kernel_varpro_f64": [_P, _P, _P, _I, _I, _I] + [ctypes.c_double] * 7 + [_I, _I, _P],
+    "lso_gram_f32": [_P, _P, _L, _I, _L, _I, _P, _P, _P],
+    "lso_gram_bf16": [_P, _P, _L, _I, _L, _I, _P, _P, _P],
 }
 
 _lib = None
@@ -70,15 +74,31 @@ def load():
     lib_path = BUILD_DIR / f"kernels_{digest.hexdigest()[:16]}.so"
     log_path = lib_path.with_suffix(".log")
     if not lib_path.exists():
-        tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{lib_path.stem}.{os.getpid()}"
+        procs = []
+        for src in sources:
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        # Wait for every compile before reporting any failure.
+        logs = [" ".join(cmd) + "\n" + proc.communicate()[0]
+                for cmd, _, proc in procs]
+        for (_, _, proc), log in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed to build the kernels:\n" + log)
+        tmp = BUILD_DIR / f"{tag}.tmp.so"
+        cmd = [_nvcc(), "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                "nvcc failed to build the kernels:\n"
+                "nvcc failed to link the kernels:\n"
                 + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
             )
-        log_path.write_text(proc.stdout + proc.stderr)
+        for _, obj, _ in procs:
+            obj.unlink()
+        log_path.write_text("\n".join(logs))
         os.replace(tmp, lib_path)
     build_log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(lib_path))

@@ -123,7 +123,7 @@ def _solve_batch_fraction(
     optimizer = resolve(optimizer, problem)
     if isinstance(optimizer, Dogleg):
         raise NotImplementedError(
-            "the Dogleg optimizer is not ported yet; pass "
+            "batched Dogleg solves are not ported yet; pass "
             "LevenbergMarquardt(Cholesky())"
         )
     if not isinstance(optimizer, LevenbergMarquardt):

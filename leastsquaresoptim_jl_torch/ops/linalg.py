@@ -1,7 +1,11 @@
 """Small dense numeric kernels shared by optimizers and solvers.
 
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/ops/linalg.py``, the
-subset the batched curve-fit path uses (reference: src/utils/utils.jl:139-177).
+subset the batched curve-fit and single-fit dense paths use (reference:
+src/utils/utils.jl:139-177). The JAX package's three modified-Gram-Schmidt
+QR solves exist because XLA's batched Householder QR cannot compile at
+large batch and small n; here ``qr_solve_with_diag`` is batched
+``torch.linalg.qr``.
 Every function takes leading batch axes: a vector argument is ``(..., n)``
 and a matrix ``(..., m, n)``, so one call serves a single fit and a batch
 of independent fits alike.
@@ -18,6 +22,18 @@ def colsumabs2(J):
     """Per-column sum of squares of J, i.e. diag(J'J)
     (reference: colsumabs2!, src/utils/utils.jl:139-144)."""
     return torch.sum(J * J, dim=-2)
+
+
+def wdot(x, y, w):
+    """Weighted inner product sum(w * x * y) over the last axis
+    (reference: src/utils/utils.jl:165-172)."""
+    return torch.sum(w * x * y, dim=-1)
+
+
+def wnorm(x, w):
+    """Weighted norm sqrt(sum(w * x^2)) over the last axis
+    (reference: src/utils/utils.jl:176)."""
+    return torch.sqrt(wdot(x, x, w))
 
 
 def sumabs2(x):
@@ -176,6 +192,27 @@ def scaled_tikhonov_jitter(gram):
     d = torch.diagonal(gram, dim1=-2, dim2=-1)
     floor = eps * torch.clamp(d.sum(-1) / n, min=1.0)
     return (100.0 * n * eps) * (d + floor.unsqueeze(-1))
+
+
+def clip_step_to_bounds(dx, x, lower, upper):
+    """Clip a descent step so that x - dx stays inside [lower, upper]
+    (the update is x <- x - dx; reference: levenberg_marquardt.jl:89-98,
+    dogleg.jl:148-157). ``lower``/``upper`` may be None."""
+    if lower is not None:
+        dx = torch.minimum(dx, x - lower)
+    if upper is not None:
+        dx = torch.maximum(dx, x - upper)
+    return dx
+
+
+def qr_solve_with_diag(A, b):
+    """Least-squares solve min ||A x - b|| by Householder QR for A
+    (..., m, n) with m >= n; also returns |diag(R)| for the callers'
+    conditioning test. An exactly singular R gives non-finite x."""
+    q, r = torch.linalg.qr(A, mode="reduced")
+    qtb = (q.mT @ b.unsqueeze(-1))
+    x = torch.linalg.solve_triangular(r, qtb, upper=True).squeeze(-1)
+    return x, torch.abs(torch.diagonal(r, dim1=-2, dim2=-1))
 
 
 def maxabs_projected_gradient(g, x, lower, upper):

@@ -1,9 +1,8 @@
 """Optimizer tags and default-selection rules (reference: src/types.jl:89-127).
 
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/optimizer/base.py``.
-``LevenbergMarquardt`` is the optimizer this package implements; the
-``Dogleg`` tag exists for the reference's default rules and raises
-``NotImplementedError`` when a solve would use it.
+Both optimizers are implemented for one fit; batched solves
+(``solve_batch``) take ``LevenbergMarquardt`` only so far.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ class AbstractOptimizer:
 @dataclasses.dataclass(frozen=True)
 class Dogleg(AbstractOptimizer):
     """Powell dogleg trust-region optimizer tag (reference:
-    src/optimizer/dogleg.jl). Not implemented in this package yet."""
+    src/optimizer/dogleg.jl)."""
 
     solver: Optional[AbstractSolver] = None
 

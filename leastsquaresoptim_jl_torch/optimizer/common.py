@@ -3,8 +3,9 @@ evaluation schedules.
 
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/optimizer/common.py``.
 Every carry leaf has the fit's batch shape in front (``()`` for a single
-fit), so the same code steps one fit or a batch of them. Bounds
-(``active_set_refinement``) are a later slice.
+fit), so the same code steps one fit or a batch of them. The JAX
+package's ``lax.cond`` in ``active_set_refinement`` becomes a
+``torch.where`` over both branches, as in ``solver/cholesky.py``.
 """
 
 from __future__ import annotations
@@ -73,6 +74,60 @@ def assess_convergence(
     x_conv = (~f_conv) & (torch.amax(torch.abs(dx), dim=-1) <= x_tol)
     g_conv = (~f_conv) & (~x_conv) & (maxabs_gr <= g_tol)
     return ConvergenceFlags(x_conv, f_conv, g_conv, x_conv | f_conv | g_conv)
+
+
+def validate_bounds(x0, lower, upper):
+    """Bounds as tensors broadcast to (n,) in x0's dtype and device; a
+    shape that does not broadcast raises ``ValueError``. Start feasibility
+    is checked separately (``api._check_initial_bounds``)."""
+    n = x0.shape[-1]
+
+    def one(b):
+        if b is None:
+            return None
+        b = torch.as_tensor(b, dtype=x0.dtype, device=x0.device)
+        try:
+            return torch.broadcast_to(b, (n,))
+        except RuntimeError as e:
+            raise ValueError(
+                f"bounds of shape {tuple(b.shape)} do not broadcast to the "
+                f"{n} parameters"
+            ) from e
+
+    return one(lower), one(upper)
+
+
+def active_set_refinement(dx, x, lower, upper, dtd, damp_free,
+                          solve_shifted, combine):
+    """Bounded-step refinement shared by the LM and Dogleg loops (the JAX
+    package's ``active_set_refinement``).
+
+    Clip the step; where clipping binds, pin those coordinates at their
+    clipped values, shift the residual by that partial move and re-solve
+    for the free coordinates, the binding ones frozen by a huge damping
+    entry. ``damp_free`` is the damping on the free coordinates;
+    ``solve_shifted(dx_a, damp2) -> (dx2, n_mul)`` solves the shifted
+    system and ``combine(dx_a, free)`` merges the two parts. Returns
+    ``(dx_refined, extra_mul_calls)``; a fit where nothing binds keeps the
+    clipped step and adds no work."""
+    from ..ops.linalg import clip_step_to_bounds
+
+    dx_clipped = clip_step_to_bounds(dx, x, lower, upper)
+    binds = torch.abs(dx_clipped - dx) > 0
+    any_binds = binds.any(dim=-1)
+    zero = torch.zeros_like(dx)
+    dx_a = torch.where(binds, dx_clipped, zero)
+    # Large enough that the frozen columns couple into the free solve at
+    # ~1e-10 relative; small enough that sqrt(freeze) stays finite in f32.
+    freeze = torch.clamp(
+        1e10 * (torch.mean(dtd, dim=-1, keepdim=True) + 1.0),
+        max=torch.finfo(dx.dtype).max / 16,
+    )
+    damp2 = torch.where(binds, freeze, damp_free)
+    dx2, n_mul = solve_shifted(dx_a, damp2)
+    refined = combine(dx_a, torch.where(binds, zero, dx2))
+    extra = any_binds.to(torch.int32) * (n_mul + 1)  # + the shift matvec
+    return torch.where(any_binds.unsqueeze(-1), refined, dx_clipped), extra
 
 
 def init_trace(opts: Options, like):

@@ -7,20 +7,22 @@ into ``(carry, cond_fn, body_fn, finalize)`` exactly as in the JAX package;
 fraction-stop driver (batch.py) drives them over a whole batch of fits,
 whose carry leaves all lead with the batch axis.
 
-The JAX package's ``lax.cond`` Jacobian reuse becomes an unconditional
-evaluation, for one fit as for a batch (the JAX package does this under
-``batched=True`` only, so the port has no ``batched`` flag): on a rejected
-step x is unchanged, so recomputing J(x) is bitwise the reuse, and a
-data-dependent Python branch would cost a device-to-host sync per
-iteration. Work counters keep the reference
-accounting (g_calls counts fresh linearization points only).
+The JAX package's ``lax.cond`` Jacobian reuse becomes a Python branch for
+one fit: ``optimize_loop`` reads the flag in the same device-to-host read
+as the stop test and passes it to ``body_fn``, which then takes (f, J)
+from the carry. A caller that does not know the flag on the host
+(``reuse=None``: batch.py's lockstep loop) gets the unconditional evaluation of
+the JAX package's ``batched=True`` path: on a rejected step x is
+unchanged, so recomputing J(x) gives the reused values. Work counters keep
+the reference accounting (g_calls counts fresh linearization points only).
 
 Schedules (optimizer/common.EvalSchedule): unfused (re-linearize at x,
 evaluate the residual at the trial point) and the fused-Gram schedules
 ``fused=True`` / ``fused="ssr"`` (one evaluation per iteration, at the
 trial point, carrying G = J'J and b = J'r; "ssr" also carries the SSR as
-a dd pair instead of the residual). Geodesic acceleration and bounds are
-later slices.
+a dd pair instead of the residual). Box bounds clip the step and refine
+it on the active set (common.active_set_refinement). Geodesic acceleration
+is a later slice.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from .. import config
 from ..ops.linalg import (
+    clip_step_to_bounds,
     colsumabs2,
     dd_diff,
     maxabs_projected_gradient,
@@ -44,6 +47,7 @@ from .common import (
     STATUS_NOT_FINITE,
     STATUS_OK,
     Options,
+    active_set_refinement,
     assess_convergence,
     build_eval_schedule,
     init_trace,
@@ -53,9 +57,28 @@ from .common import (
 )
 
 
+# Parameter count up to which J v is a broadcast multiply + reduce.
+_BROADCAST_MATVEC_MAX_N = 16
+
+
 def _gmatvec(G, v):
     """(..., n, n) x (..., n) product in broadcast form."""
     return torch.sum(G * v.unsqueeze(-2), dim=-1)
+
+
+def _jmatvec(J, v):
+    """J v for J (..., m, n), v (..., n): broadcast form for small n, a
+    matmul above (the JAX package's ``operators.from_matrix`` split)."""
+    if J.shape[-1] <= _BROADCAST_MATVEC_MAX_N:
+        return torch.sum(J * v.unsqueeze(-2), dim=-1)
+    return (J @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def _jrmatvec(J, u):
+    """J'u for J (..., m, n), u (..., m), split as ``_jmatvec``."""
+    if J.shape[-1] <= _BROADCAST_MATVEC_MAX_N:
+        return torch.sum(J * u.unsqueeze(-1), dim=-2)
+    return (J.mT @ u.unsqueeze(-1)).squeeze(-1)
 
 
 def loop_pieces(
@@ -75,10 +98,6 @@ def loop_pieces(
     if geodesic:
         raise NotImplementedError(
             "geodesic acceleration is not ported yet"
-        )
-    if lower is not None or upper is not None:
-        raise NotImplementedError(
-            "bounded LM (active_set_refinement) is not ported yet"
         )
     residual_fn = problem.residual_fn
     jac_fn = problem.jac_fn
@@ -145,7 +164,10 @@ def loop_pieces(
             & torch.isfinite(c["x"]).all(dim=-1)
         )
 
-    def body_fn(c):
+    def body_fn(c, reuse=None):
+        """One iteration. ``reuse`` is the carry's ``~need_jacobian`` read
+        on the host (True: take (f, J) from the carry; False: evaluate and
+        carry them), or None to evaluate unconditionally."""
         it = c["it"] + 1
         x, ssr = c["x"], c["ssr"]
         delta = c["delta"]
@@ -158,7 +180,7 @@ def loop_pieces(
             fcur = None if ssr_carry else c["fcur"]
             J = None
         else:
-            fcur, J = res_jac_fn(x)
+            fcur, J = c["linearization"] if reuse else res_jac_fn(x)
             jstate = x
         g_calls = c["g_calls"] + c["need_jacobian"].to(torch.int32)
 
@@ -183,11 +205,27 @@ def loop_pieces(
             dx, lmiter, _ = solve_damped(J, fcur, damp)
         mul_calls = c["mul_calls"] + lmiter
 
+        # Box clip (reference :89-98) with the active-set refinement; LM
+        # keeps its own damping on the free coordinates.
+        if lower is not None or upper is not None:
+            def solve_shifted(dx_a, damp2):
+                if fused_gram:
+                    # J'(f - J dx_a) = b - G dx_a
+                    return solve_spd_system(G, b - _gmatvec(G, dx_a), damp2), 1
+                dx2, it2, _ = solve_damped(J, fcur - _jmatvec(J, dx_a), damp2)
+                return dx2, it2
+
+            dx, lmiter2 = active_set_refinement(
+                dx, x, lower, upper, dtd, damp, solve_shifted,
+                lambda dx_a, free: clip_step_to_bounds(dx_a + free, x, lower, upper),
+            )
+            mul_calls = mul_calls + lmiter2
+
         # Gradient J'f at the pre-update x (reference :100-104); in Gram
         # space it IS the carried rhs b.
-        g = b if fused_gram else torch.sum(J * fcur.unsqueeze(-1), dim=-2)
+        g = b if fused_gram else _jrmatvec(J, fcur)
         mul_calls = mul_calls + 1
-        maxabs_gr = maxabs_projected_gradient(g, x, None, None)
+        maxabs_gr = maxabs_projected_gradient(g, x, lower, upper)
 
         # Trial point and gain ratio (reference :106-119), both reductions
         # cancellation-free (see the JAX package for the identities).
@@ -209,7 +247,7 @@ def loop_pieces(
                 - torch.sum(dx * _gmatvec(G, dx), dim=-1)
             )
         else:
-            jdx = torch.sum(J * dx.unsqueeze(-2), dim=-1)
+            jdx = _jmatvec(J, dx)
             predicted_reduction = torch.abs(
                 torch.sum(jdx * (2.0 * fcur - jdx), dim=-1)
             )
@@ -267,6 +305,8 @@ def loop_pieces(
         if fused_gram:
             new["gram"] = torch.where(acc.unsqueeze(-1), gtrial, G)
             new["grhs"] = torch.where(acc, btrial, b)
+        elif reuse is not None:
+            new["linearization"] = (fcur, J)
         new["trace"] = update_trace(c["trace"], opts, it, new["ssr"], maxabs_gr)
         return new
 
@@ -308,11 +348,13 @@ def optimize_loop(
 ):
     """Run LM on ONE fit from ``x0`` (default ``problem.x0``, shape (n,));
     returns the raw result dict. Each loop test reads the stop condition
-    back to the host; batches go through batch.solve_batch, which freezes
-    each fit at its own stop."""
+    and the Jacobian-reuse flag back to the host in one read; batches go
+    through batch.solve_batch, which freezes each fit at its own stop."""
     carry, cond_fn, body_fn, finalize = loop_pieces(
         problem, solver_tag, opts, lower, upper, x0, fused, geodesic
     )
-    while bool(cond_fn(carry)):
-        carry = body_fn(carry)
-    return finalize(carry)
+    while True:
+        go, need = torch.stack([cond_fn(carry), carry["need_jacobian"]]).tolist()
+        if not go:
+            return finalize(carry)
+        carry = body_fn(carry, not need)

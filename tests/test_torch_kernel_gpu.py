@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from leastsquaresoptim_jl_torch.interop import kernel_state
+from leastsquaresoptim_jl_torch.ops import gram as tg
 from leastsquaresoptim_jl_torch.ops import kernel_varpro as tk
 
 TOLS = (1e-6, 1e-6, 1e-5)
@@ -82,3 +83,52 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
             torch.tensor(a0, device=cuda_device), x_tol=1e-6, f_tol=1e-6,
             g_tol=1e-5,
         )
+
+
+def _gram_case(m, n, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    J = torch.tensor(rng.standard_normal((m, n), dtype=np.float32), device=device)
+    y = torch.tensor(rng.standard_normal(m, dtype=np.float32), device=device)
+    return J.to(dtype), y.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(m, n) for m in (100, 1300, 4100)
+                                 for n in (32, 64, 128, 256)] + [(8192, 1024)])
+def test_gram_kernel_matches_plain_version(cuda_device, m, n):
+    """The Gram kernel against its plain version (cuBLAS through torch) on
+    the card, float32; both sum in float32 in different orders, so each
+    entry is held to 1e-5 of its Cauchy-Schwarz scale sqrt(G_ii G_jj). On
+    132 SMs the row split gives 4, 41 and 65-129 chunks of 32-64 rows, the
+    last one ragged, and 8 full chunks of 1024 rows at (8192, 1024)."""
+    J, y = _gram_case(m, n, torch.float32, cuda_device, seed=m + n)
+    before = tg.launches
+    G, b = tg._gram_kernel(J, y)
+    Gr, br = tg._gram_reference(J, y)
+    torch.cuda.synchronize()
+    assert tg.launches == before + 1
+    d = torch.sqrt(torch.diagonal(Gr))
+    assert ((G - Gr).abs() / (d[:, None] * d[None, :])).max().item() <= 1e-5
+    assert ((b - br).abs() / (d * torch.linalg.vector_norm(y))).max().item() <= 1e-5
+    assert torch.equal(G, G.mT)  # mirrored on write
+
+
+@pytest.mark.gpu
+def test_gram_kernel_is_deterministic_and_takes_bfloat16(cuda_device):
+    J, y = _gram_case(4096, 128, torch.bfloat16, cuda_device)
+    G1, b1 = tg.gram_and_rhs(J, y, use_pallas=True)
+    G2, b2 = tg.gram_and_rhs(J, y, use_pallas=True)
+    assert G1.dtype == torch.bfloat16 and torch.equal(G1, G2) and torch.equal(b1, b2)
+    Gr, _ = tg._gram_reference(J, y)
+    d = torch.sqrt(torch.diagonal(Gr.float()))
+    err = ((G1.float() - Gr.float()).abs() / (d[:, None] * d[None, :])).max().item()
+    assert err <= 2.0 ** -7  # both round an f32 sum to bfloat16
+
+
+@pytest.mark.gpu
+def test_gram_kernel_rejects_what_it_cannot_take(cuda_device):
+    J, y = _gram_case(256, 32, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tg.gram_and_rhs(J.double(), y.double(), use_pallas=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tg.gram_and_rhs(J.mT.contiguous().mT, y, use_pallas=True)

@@ -108,5 +108,7 @@ def test_cholesky_solve_gn_matches_jax():
 
 
 def test_gram_pallas_route_raises():
-    with pytest.raises(NotImplementedError, match="Queue 2"):
+    """The Gram kernel's route takes n in {32, 64} or a multiple of 128, as
+    the JAX package's _gram_pallas does; other widths raise."""
+    with pytest.raises(ValueError, match="supports n in"):
         tgram.gram_and_rhs(torch.ones(4, 2), torch.ones(4), use_pallas=True)
