@@ -34,8 +34,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    rounding of the result). A TF32 control (J and y rounded to TF32's 10
    mantissa bits, then the plain float32 Gram) must exceed that limit at
    every float32 shape with m <= 8192, so that the check would catch a
-   kernel that reads J in TF32. Times (CUDA-event medians of 20) at every
-   shape with m >= 8192.
+   kernel that reads J in TF32. At every shape with m >= 8192: the times
+   of the kernel route (launch and chunk sum), of its plain version and
+   of the library call J.mT @ J, J.mT @ y in J's dtype (TF32 off), each
+   the mean of 20 back-to-back calls between two CUDA events after 3
+   warm-up calls; the bound (the larger of the bytes of J, y and the
+   result over 3.35 TB/s and the m n (n + 1) FLOPs of the upper triangle
+   over 495 TFLOP/s in TF32, 989 in bf16) and the kernel's share of it.
+6b. Measurement builds of gram.cu (LSO_GRAM_PROBE, see its header), at
+   the float32 shapes of phase 6 with m >= 8192, launched alone into
+   preallocated scratch (phase 6's timing): the error of a kernel that
+   keeps one wgmma accumulator for a whole row chunk, beside the kernel's
+   (which must be within phase 6's limit); the split pass's cost alone
+   (no wgmmas, with and without the pass) and on the kernel's critical
+   path (the kernel with and without the pass).
 7. The row-sharded Gram on a one-rank NCCL group at (2^20, 256): equal to
    gram_and_rhs(use_pallas=True) bit for bit, the kernel's counter moved
    (reset just before), and the normal-equations solution within 1e-4
@@ -48,11 +60,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    Gram kernel launch in 8a-8b (the solvers' Gram is plain), Dogleg
    iterations/s; (c) config #3's J at the float32 final iterate through the
    Gram kernel and its plain version, errors (phase 6's limit, with its
-   TF32 control) and times.
+   TF32 control), and phase 6's times and bound.
 
-The second-to-last line is a JSON object describing each kernel; the last
-is {"ok": true, "device": {...}}. The script needs one CUDA card and
-imports nothing of JAX.
+The second-to-last line is a JSON object describing each kernel (times
+from phase 5 for kernel_varpro, from phase 6 at (2^20, 256) float32 for
+the Gram; bounds from this run's shapes and, for kernel_varpro, the
+iterations its fits ran); the last is {"ok": true, "device": {...}}. The
+script needs one CUDA card and imports nothing of JAX.
 """
 
 import json
@@ -277,10 +291,15 @@ def main():
     event_ms(kv._launch_reference, 3)
     ms_k = event_ms(kv._launch_kernel)
     ms_r = event_ms(kv._launch_reference)
+    fit_iters = int((sk[:, kv._ITERS] - state0[:, kv._ITERS]).sum().item())
+    bound_k, bound_by_k = varpro_bound(B_MAIN, M, fit_iters, 4)
     print(f"  one launch K={K}: kernel {ms_k:.4f} ms, plain version {ms_r:.4f} ms "
-          f"(median of 20, CUDA events) [{smi}]")
+          f"(median of 20, CUDA events); bound {bound_k:.4f} ms ({bound_by_k}; "
+          f"{fit_iters} fit-iterations), kernel at {bound_k / ms_k:.1%} of it; "
+          f"no single library call computes it [{smi}]")
 
     gram_cmp = phase_gram(dev, smi)
+    phase_gram_probes(dev, smi)
     gram_launches = phase_sharded_gram(dev)
     phase_single_fit(dev, smi)
 
@@ -293,6 +312,9 @@ def main():
         "max_abs_err": max_abs,
         "ms": ms_k,
         "plain_ms": ms_r,
+        "bound_ms": bound_k,
+        "bound_by": bound_by_k,
+        "library_ms": None,
     }, {
         "name": "gram",
         "route": "cuda",
@@ -305,18 +327,78 @@ def main():
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
 
-def event_ms(fn, n=20, warmup=3):
-    """Median CUDA-event time of ``fn()`` in ms over ``n`` runs."""
+def loop_ms(fn, n=20, warmup=3):
+    """Mean time of ``fn()`` in ms over ``n`` back-to-back calls between two
+    CUDA events, after ``warmup`` calls."""
     for _ in range(warmup):
         fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    for i in range(n):
-        starts[i].record()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
         fn()
-        ends[i].record()
+    end.record()
     torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+    return start.elapsed_time(end) / n
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W).
+HBM_BYTES_PER_MS = 3.35e9
+PEAK_FLOPS_PER_MS = {"tf32": 495e9, "bf16": 989e9, "fp32": 67e9}
+# Operations of one p = 1 VarPro LM iteration per sample, counted from
+# ops/kernel_varpro.py::_iteration_reference: two evaluations of the
+# model and its projection (a multiply, exp, subtract and multiply for
+# the basis; P.P, q = P / R, q.y, r = y - z q: 9 FLOPs, 1 exp, 1 division
+# each), then r.r, P.dP, dP.y, the Jacobian (3), J.J, J.r and the actual
+# reduction (4): 17 FLOPs. exp and division count one each; the per-fit
+# scalar work (about 50 operations per fit) is left out.
+VARPRO_OPS_PER_SAMPLE_ITERATION = 2 * (9 + 1 + 1) + 17
+
+
+def bound_of(nbytes, flops, peak):
+    """(least ms, binding term): bytes over HBM bandwidth or operations
+    over the peak rate for their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_MS
+    t_ops = flops / PEAK_FLOPS_PER_MS[peak]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gram_bound(m, n, dtype):
+    """The Gram's bound: J and y read once and G, J'y written once (in J's
+    dtype); the m n (n + 1) FLOPs of the upper triangle with its diagonal
+    at the tensor-core rate for J's type."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (m * n + m + n * n + n) * size
+    return bound_of(nbytes, m * n * (n + 1),
+                    "bf16" if dtype == torch.bfloat16 else "tf32")
+
+
+def varpro_bound(B, m, fit_iterations, size):
+    """kernel_varpro's bound for one float32 launch: Y and x read once,
+    the (B, 8) state read and written once; the operations of the
+    fit-iterations the launch ran, at the float32 rate outside the tensor
+    cores (67 TFLOP/s)."""
+    nbytes = (B * m + m + 2 * B * 8) * size
+    return bound_of(nbytes, fit_iterations * m * VARPRO_OPS_PER_SAMPLE_ITERATION, "fp32")
+
+
+def gram_times(J, y, smi, what):
+    """Phase 6's times at one shape: kernel route, plain version, library
+    call; the bound and the kernel's share of it. Returns a dict for the
+    kernels line."""
+    from leastsquaresoptim_jl_torch.ops import gram
+
+    m, n = J.shape
+    ms_k = loop_ms(lambda: gram.gram_and_rhs(J, y, use_pallas=True))
+    ms_r = loop_ms(lambda: gram._gram_reference(J, y))
+    ms_l = loop_ms(lambda: (J.mT @ J, J.mT @ y))
+    bound, bound_by = gram_bound(m, n, J.dtype)
+    print(f"  {what}: kernel_ms {ms_k:.4f}, library_ms {ms_l:.4f} (J.mT @ J, "
+          f"J.mT @ y in {J.dtype}), plain_ms {ms_r:.4f}, bound_ms {bound:.4f} "
+          f"({bound_by}), kernel at {bound / ms_k:.1%} of the bound "
+          f"(means of 20 back-to-back calls, CUDA events) [{smi}]")
+    return dict(ms=ms_k, plain_ms=ms_r, bound_ms=bound, bound_by=bound_by,
+                library_ms=ms_l)
 
 
 def gram_errors(G, b, G64, b64, y64):
@@ -351,20 +433,14 @@ TF32_CONTROL_MAX_M = 8192
 BF16_ROUNDING = 2.0 ** -8
 
 
-def tf32_round(x):
-    """A float32 tensor rounded to nearest even on TF32's 10 mantissa bits:
-    what a tensor-core kernel that reads it in TF32 multiplies."""
-    b = x.contiguous().view(torch.int32)
-    b = (b + 0x0FFF + ((b >> 13) & 1)) & -0x2000
-    return b.view(torch.float32)
-
-
 def check_tf32_control(J, y, G64, b64, what):
-    """The plain Gram of TF32-rounded J and y against the float64 Gram of
-    J and y: it must exceed GRAM_LIMIT."""
-    from leastsquaresoptim_jl_torch.ops import gram
+    """One TF32 product (J and y rounded to TF32 once, then a float32 Gram
+    with TF32 off) against the float64 Gram of J and y: it must exceed
+    GRAM_LIMIT."""
+    from leastsquaresoptim_jl_torch.ops.gram import tf32_round
 
-    Gt, bt = gram._gram_reference(tf32_round(J), tf32_round(y))
+    Jt, yt = tf32_round(J), tf32_round(y)
+    Gt, bt = Jt.mT @ Jt, Jt.mT @ yt
     errs = gram_errors(Gt, bt, G64, b64, y.double())
     print(f"  {what}: TF32 control G err {errs[0]:.3e}, J'y err {errs[1]:.3e}")
     return errs
@@ -401,20 +477,58 @@ def phase_gram(dev, smi):
                 check(max(errs_t) > limit,
                       f"({m}, {n}): the TF32 control exceeds the limit {limit:g}")
         if m >= 8192:
-            ms_k = event_ms(lambda: gram.gram_and_rhs(J, y, use_pallas=True))
-            ms_r = event_ms(lambda: gram._gram_reference(J, y))
-            nbytes = m * n * J.element_size()
-            flops = 2.0 * m * n * n
-            print(f"  ({m}, {n}) {dt}: kernel {ms_k:.4f} ms "
-                  f"({nbytes / ms_k / 1e6:.1f} GB/s, {flops / ms_k / 1e9:.2f} TFLOP/s), "
-                  f"plain {ms_r:.4f} ms ({nbytes / ms_r / 1e6:.1f} GB/s, "
-                  f"{flops / ms_r / 1e9:.2f} TFLOP/s) (median of 20, CUDA events; "
-                  f"TFLOP/s counts 2 m n^2) [{smi}]")
+            times = gram_times(J, y, smi, f"({m}, {n}) {dt}")
             if (m, n, dt) == (1_048_576, 256, torch.float32):
-                main = dict(max_abs_err=(Gk - Gr).abs().max().item(),
-                            ms=ms_k, plain_ms=ms_r)
+                main = dict(max_abs_err=(Gk - Gr).abs().max().item(), **times)
         del J, y, G64, b64
     return main
+
+
+# LSO_GRAM_PROBE values of gram.cu's measurement builds.
+GRAM_PROBES = {"one accumulator per chunk": 1, "no wgmma": 2,
+               "no wgmma, no split pass": 3, "no split pass": 4}
+
+
+def phase_gram_probes(dev, smi):
+    """Phase 6b: gram.cu's measurement builds against the kernel."""
+    from leastsquaresoptim_jl_torch import _build
+    from leastsquaresoptim_jl_torch.ops import gram
+
+    print("== phase 6b: Gram kernel measurement builds (LSO_GRAM_PROBE)")
+    t0 = time.perf_counter()
+    libs = _build.load_variants(
+        "gram.cu", {k: [f"-DLSO_GRAM_PROBE={v}"] for k, v in GRAM_PROBES.items()})
+    libs = {"kernel": _build.load(), **libs}
+    print(f"  {len(GRAM_PROBES)} builds in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(6)
+    for (m, n), dt in GRAM_SHAPES:
+        if dt != torch.float32 or m < 8192:
+            continue
+        J = torch.tensor(rng.standard_normal((m, n), dtype=np.float32), device=dev)
+        y = torch.tensor(rng.standard_normal(m, dtype=np.float32), device=dev)
+        G64, b64 = J.double().mT @ J.double(), J.double().mT @ y.double()
+        rows, chunks = gram._plan(libs["kernel"], J)
+        gp = torch.empty((chunks, n, n), device=dev)
+        bp = torch.empty((chunks, n), device=dev)
+        errs, ms = {}, {}
+        for label, lib in libs.items():
+            def launch(lib=lib):
+                gram._enqueue(lib, J, y, rows, gp, bp)
+            if label in ("kernel", "one accumulator per chunk"):
+                launch()
+                errs[label] = gram_errors(gp.sum(dim=0), bp.sum(dim=0), G64, b64, y.double())
+            ms[label] = loop_ms(launch)
+        print(f"  ({m}, {n}) float32, {chunks} chunks of {rows} rows: G err "
+              f"{errs['kernel'][0]:.3e} (kernel), "
+              f"{errs['one accumulator per chunk'][0]:.3e} (one accumulator per chunk)")
+        check(max(errs["kernel"]) <= GRAM_LIMIT, f"({m}, {n}): kernel launch alone "
+              f"within {GRAM_LIMIT:g} of float64")
+        print(f"  ({m}, {n}) launch alone, ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+              + f"; split pass alone {ms['no wgmma'] - ms['no wgmma, no split pass']:.4f}, "
+              f"on the critical path {ms['kernel'] - ms['no split pass']:.4f} "
+              f"(means of 20 back-to-back launches, CUDA events) [{smi}]")
+        del J, y, G64, b64, gp, bp
 
 
 def free_port():
@@ -551,10 +665,7 @@ def phase_single_fit(dev, smi):
         et = check_tf32_control(J, r, G64, b64, f"{dt}")
         check(max(et) > GRAM_LIMIT,
               f"{dt}: the TF32 control exceeds the limit {GRAM_LIMIT:g}")
-        ms_k = event_ms(lambda: gram.gram_and_rhs(J, r, use_pallas=True))
-        ms_r = event_ms(lambda: gram._gram_reference(J, r))
-        print(f"  {dt}: kernel {ms_k:.4f} ms, plain {ms_r:.4f} ms (median of 20, "
-              f"CUDA events) [{smi}]")
+        gram_times(J, r, smi, f"{dt} config #3's J (8192, 1024)")
 
 
 if __name__ == "__main__":

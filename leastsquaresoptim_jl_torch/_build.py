@@ -12,6 +12,10 @@ library is loaded with ``ctypes``; pointers and the stream are passed as
 ``-fmad=false`` keeps every multiply and add separately rounded, as the
 plain PyTorch versions of the kernels are, so that a kernel and its plain
 version can be compared bit for bit on the card.
+
+``load_variants`` builds one source again under extra flags (build-time
+defines such as gram.cu's ``LSO_GRAM_PROBE``), each variant into a library
+of its own, for measurements that the package itself never calls.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ _SIGNATURES = {
     "lso_kernel_varpro_f64": [_P, _P, _P, _I, _I, _I] + [ctypes.c_double] * 7 + [_I, _I, _P],
     "lso_gram_f32": [_P, _P, _L, _I, _L, _I, _P, _P, _P],
     "lso_gram_bf16": [_P, _P, _L, _I, _L, _I, _P, _P, _P],
+    "lso_gram_config": [_I, _I, ctypes.POINTER(_I)],
 }
 
 _lib = None
@@ -59,35 +64,40 @@ def _nvcc():
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def load():
-    """Return the loaded kernel library, building it first if needed."""
-    global _lib, build_seconds, build_log
-    if _lib is not None:
-        return _lib
-    t0 = time.perf_counter()
-    sources = sorted(SOURCE_DIR.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
+def _build(jobs):
+    """Build each (sources, extra flags) of ``jobs`` into a shared library
+    unless it is cached; every ``nvcc -c`` of every job is started at once.
+    Returns the libraries' paths."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"kernels_{digest.hexdigest()[:16]}.so"
-    log_path = lib_path.with_suffix(".log")
-    if not lib_path.exists():
+    pending, paths = [], []
+    for sources, extra in jobs:
+        flags = [*NVCC_FLAGS, *extra]
+        digest = hashlib.sha256(" ".join(flags).encode())
+        for src in sources:
+            digest.update(src.name.encode())
+            digest.update(src.read_bytes())
+        lib_path = BUILD_DIR / f"kernels_{digest.hexdigest()[:16]}.so"
+        paths.append(lib_path)
+        if lib_path.exists():
+            continue
         tag = f"{lib_path.stem}.{os.getpid()}"
         procs = []
         for src in sources:
             obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            cmd = [_nvcc(), *flags, "-c", "-o", str(obj), str(src)]
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        # Wait for every compile before reporting any failure.
-        logs = [" ".join(cmd) + "\n" + proc.communicate()[0]
-                for cmd, _, proc in procs]
+        pending.append((lib_path, tag, procs))
+    # Wait for every compile before reporting any failure.
+    done = [(lib_path, tag, procs,
+             [" ".join(cmd) + "\n" + proc.communicate()[0] for cmd, _, proc in procs])
+            for lib_path, tag, procs in pending]
+    for _, _, procs, logs in done:
         for (_, _, proc), log in zip(procs, logs):
             if proc.returncode != 0:
                 raise RuntimeError("nvcc failed to build the kernels:\n" + log)
+    for lib_path, tag, procs, logs in done:
         tmp = BUILD_DIR / f"{tag}.tmp.so"
         cmd = [_nvcc(), "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -98,14 +108,38 @@ def load():
             )
         for _, obj, _ in procs:
             obj.unlink()
-        log_path.write_text("\n".join(logs))
+        lib_path.with_suffix(".log").write_text("\n".join(logs))
         os.replace(tmp, lib_path)
-    build_log = log_path.read_text() if log_path.exists() else ""
+    return paths
+
+
+def _open(lib_path):
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def load():
+    """Return the loaded kernel library, building it first if needed."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    t0 = time.perf_counter()
+    (lib_path,) = _build([(sorted(SOURCE_DIR.glob("*.cu")), [])])
+    log_path = lib_path.with_suffix(".log")
+    build_log = log_path.read_text() if log_path.exists() else ""
+    _lib = _open(lib_path)
     build_seconds = time.perf_counter() - t0
     return _lib
+
+
+def load_variants(source, variants):
+    """``{name: extra nvcc flags}`` -> ``{name: library}``: ``csrc/<source>``
+    alone, built once per variant (all compiles started together)."""
+    names = list(variants)
+    paths = _build([([SOURCE_DIR / source], list(variants[k])) for k in names])
+    return {k: _open(p) for k, p in zip(names, paths)}

@@ -164,11 +164,14 @@ def optimize(
     output_length: Optional[int] = None,
     materialize_jacobian: bool = True,
     loss="linear",
+    device=None,
     **kwargs,
 ) -> LeastSquaresResult:
     """Minimize sum(f(x)^2) from the vector ``x0`` (reference: optimize,
     src/types.jl:182-184); ``kwargs`` go to ``optimize_problem``. The
     defaults follow the reference: a dense Jacobian gets ``Dogleg(QR())``.
+    A tensor ``x0`` keeps its device; numpy or list ``x0`` goes to
+    the current CUDA device or to ``device``.
     """
     if loss != "linear":
         raise NotImplementedError(
@@ -176,6 +179,6 @@ def optimize(
         )
     problem = least_squares_problem(
         f=f, x=x0, g=g, output_length=output_length, autodiff=autodiff,
-        materialize_jacobian=materialize_jacobian,
+        materialize_jacobian=materialize_jacobian, device=device,
     )
     return optimize_problem(problem, optimizer, **kwargs)

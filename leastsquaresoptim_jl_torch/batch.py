@@ -15,6 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ._device import data_device
 from .optimizer.common import Options
 from .problem import least_squares_problem
 
@@ -35,6 +36,7 @@ def solve_batch(
     min_converged_fraction: Optional[float] = None,
     fused=None,
     stop_check_every: int = 1,
+    device=None,
 ):
     """Solve a batch of independent fits sharing one residual function.
 
@@ -50,6 +52,9 @@ def solve_batch(
     ``stop_check_every=k`` checks that quorum every k iterations. Each
     check reads one count back to the host, a device-to-host sync; fits
     still freeze at their own iteration.
+
+    ``device`` is where numpy or list ``x0_batch`` goes (default: the
+    current CUDA device; a tensor keeps its device).
 
     Returns the raw result dict with a leading batch axis on every leaf.
     """
@@ -68,7 +73,7 @@ def solve_batch(
         optimizer = Dogleg(Cholesky())
     if lower is not None or upper is not None:
         raise NotImplementedError("bounded batch solves are not ported yet")
-    x0_batch = torch.as_tensor(x0_batch)
+    x0_batch = torch.as_tensor(x0_batch, device=data_device(x0_batch, device))
     if min_converged_fraction is None:
         if stop_check_every != 1:
             raise ValueError(

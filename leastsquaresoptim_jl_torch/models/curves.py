@@ -7,8 +7,10 @@ ports the linear-loss path with its VarPro (``separable=True``) and
 gridded-exp (``gridded=True``) options; robust losses (IRLS), automatic
 starts, bounds and the single-fit ``curve_fit`` are later slices.
 
-The device and dtype come from ``ydata``: a numpy ``xdata``/``p0`` is
-moved to ``ydata``'s device, and ``xdata`` takes ``ydata``'s dtype.
+The device and dtype come from ``ydata``: a tensor keeps its device, and
+numpy or list data goes to the current CUDA device or to ``device=``
+(``_device.py``); a numpy ``xdata``/``p0`` is moved to ``ydata``'s device,
+and ``xdata`` takes ``ydata``'s dtype.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .._device import data_device
 from ..batch import solve_batch
 from ..optimizer.common import Options
 
@@ -110,6 +113,7 @@ def curve_fit_batch(
     irls_iterations: int = 10,
     fused=None,
     stop_check_every: int = 1,
+    device=None,
 ):
     """Fit a batch of independent curves in one lockstep solve.
 
@@ -124,7 +128,9 @@ def curve_fit_batch(
     on the nonlinear parameters, ``p0`` stays the FULL parameter vector
     and the returned ``minimizer`` is the full vector with the optimal
     coefficients filled in. ``fused`` forwards to solve_batch's fused
-    evaluation schedules (True / "ssr").
+    evaluation schedules (True / "ssr"). ``device`` is where numpy or
+    list ``ydata`` goes (default: the current CUDA device; a tensor keeps
+    its device).
     """
     if isinstance(p0, str):
         raise NotImplementedError("p0='auto' (data-driven starts) is not ported yet")
@@ -157,7 +163,7 @@ def curve_fit_batch(
             )
     else:
         model = _as_model(model)
-    ydata = torch.as_tensor(ydata)
+    ydata = torch.as_tensor(ydata, device=data_device(ydata, device))
     device, dtype = ydata.device, ydata.dtype
     p0 = torch.as_tensor(p0, device=device)
     x_user = xdata  # grid validation reads the user's own values

@@ -37,6 +37,7 @@ import math
 import torch
 
 from .. import config
+from .._device import data_device
 
 # State vector columns (per fit).
 _ALPHA, _DELTA, _DEC, _C, _ITERS, _DONE, _CONV, _FLAGS = range(8)
@@ -261,6 +262,7 @@ def varpro_lm_p1_kernel_solve(
     k_iters: int = 8,
     block_fits: int = 8,
     radius: float = None,
+    device=None,
 ):
     """Solve B independent p = 1 separable curve fits with the fused LM
     kernel. ``basis`` names the model's basis (``BASES``); ``x_grid`` is
@@ -276,8 +278,9 @@ def varpro_lm_p1_kernel_solve(
     ``iterations`` and ``done``.
 
     A CUDA ``Y`` launches the kernel (or raises); a CPU ``Y`` runs the
-    plain PyTorch version."""
-    Y = torch.as_tensor(Y)
+    plain PyTorch version. A tensor ``Y`` keeps its device; numpy or list
+    ``Y`` goes to the current CUDA device or to ``device``."""
+    Y = torch.as_tensor(Y, device=data_device(Y, device))
     if Y.device.type == "cuda":
         launch = _launch_kernel
     elif Y.device.type == "cpu":

@@ -24,6 +24,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ._device import data_device
+
 
 def _forward_res_jac(residual_fn: Callable) -> Callable:
     """``res_jac_fn(x) -> (r, J)`` by forward mode, sharing one primal.
@@ -80,11 +82,14 @@ def least_squares_problem(
     g: Optional[Callable] = None,
     autodiff: str = "forward",
     materialize_jacobian: bool = True,
+    device=None,
 ) -> LeastSquaresProblem:
     """Keyword constructor mirroring the reference problem constructor
     (src/types.jl:40-68). ``x`` is a tensor of shape (..., n); leading axes
-    are independent fits. Without ``output_length`` the residual is
-    evaluated once at ``x`` to find m."""
+    are independent fits. A tensor keeps its device; numpy or list ``x``
+    goes to the current CUDA device or to ``device`` (``_device.py``).
+    Without ``output_length`` the residual is evaluated once at ``x`` to
+    find m."""
     if f is None:
         raise ValueError("residual function f is required")
     if x is None:
@@ -107,7 +112,7 @@ def least_squares_problem(
             f"Invalid automatic differentiation method {autodiff!r}; "
             "expected 'forward', 'reverse' or 'central'."
         )
-    x = torch.as_tensor(x)
+    x = torch.as_tensor(x, device=data_device(x, device))
     if x.ndim < 1:
         raise ValueError(f"x must be a vector, got shape {tuple(x.shape)}")
     if output_length is None:

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from leastsquaresoptim_jl_torch import _build
 from leastsquaresoptim_jl_torch.interop import kernel_state
 from leastsquaresoptim_jl_torch.ops import gram as tg
 from leastsquaresoptim_jl_torch.ops import kernel_varpro as tk
@@ -93,23 +94,36 @@ def _gram_case(m, n, dtype, device, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n", [(m, n) for m in (100, 1300, 4100)
-                                 for n in (32, 64, 128, 256)] + [(8192, 1024)])
-def test_gram_kernel_matches_plain_version(cuda_device, m, n):
-    """The Gram kernel against its plain version (cuBLAS through torch) on
-    the card, float32; both sum in float32 in different orders, so each
-    entry is held to 1e-5 of its Cauchy-Schwarz scale sqrt(G_ii G_jj). On
-    132 SMs the row split gives 4, 41 and 65-129 chunks of 32-64 rows, the
-    last one ragged, and 8 full chunks of 1024 rows at (8192, 1024)."""
-    J, y = _gram_case(m, n, torch.float32, cuda_device, seed=m + n)
+@pytest.mark.parametrize("m,n,dtype", [(m, n, torch.float32)
+                                       for m in (100, 1300, 4100, 8193)
+                                       for n in (32, 64, 128, 256)]
+                         + [(8192, 1024, torch.float32), (4100, 256, torch.bfloat16),
+                            (1300, 32, torch.bfloat16), (8193, 64, torch.bfloat16)])
+def test_gram_kernel_matches_plain_version(cuda_device, m, n, dtype):
+    """The Gram kernel against a float64 Gram of the same J and y on the
+    card: each entry within 1e-5 of its Cauchy-Schwarz scale
+    sqrt(G_ii G_jj), the limit a TF32 read of J exceeds at these m (bf16:
+    plus 2^-8, the rounding of the result to bf16). m = 8193 leaves a
+    one-row tail that TMA fills with zeros; the row split, from the
+    library's settings, gives whole stages in 1 to 256 chunks, the last one
+    ragged."""
+    J, y = _gram_case(m, n, dtype, cuda_device, seed=m + n)
+    lib = _build.load()
+    tile, stage_rows, _ = tg._kernel_config(lib, dtype, n)
+    rows, chunks = tg._plan(lib, J)
+    assert tile in (32, 64, 128) and rows % stage_rows == 0
+    assert (chunks - 1) * rows < m <= chunks * rows
     before = tg.launches
     G, b = tg._gram_kernel(J, y)
-    Gr, br = tg._gram_reference(J, y)
     torch.cuda.synchronize()
     assert tg.launches == before + 1
-    d = torch.sqrt(torch.diagonal(Gr))
-    assert ((G - Gr).abs() / (d[:, None] * d[None, :])).max().item() <= 1e-5
-    assert ((b - br).abs() / (d * torch.linalg.vector_norm(y))).max().item() <= 1e-5
+    assert G.dtype == dtype and b.dtype == dtype
+    J64, y64 = J.double(), y.double()
+    G64, b64 = J64.mT @ J64, J64.mT @ y64
+    d = torch.sqrt(torch.diagonal(G64))
+    limit = 1e-5 + (2.0 ** -8 if dtype == torch.bfloat16 else 0.0)
+    assert ((G.double() - G64).abs() / (d[:, None] * d[None, :])).max().item() <= limit
+    assert ((b.double() - b64).abs() / (d * torch.linalg.vector_norm(y64))).max().item() <= limit
     assert torch.equal(G, G.mT)  # mirrored on write
 
 
