@@ -8,11 +8,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 1. Card and build: the card's name and power limit (nvidia-smi), and the
    time to build the CUDA kernels from leastsquaresoptim_jl_torch/csrc/.
 2. The fused VarPro LM kernel against its plain PyTorch version on the
-   card: B = 4099 fits (not a block multiple), m = 64, from one numpy-made
-   state, in float32 and float64, after one launch of K = 8 iterations and
-   over a full solve. Limits: float64 median relative alpha difference
-   <= 1e-12 and iterations/flags equal on >= 99.9% of fits; float32
-   <= 1e-6 and >= 99%.
+   card, for every basis it compiles (exp_saturation, power,
+   michaelis_menten) at m = 64, 37 and 1024 (lanes_per_fit(m) lanes per
+   fit), in float32 and float64: B = 4099 fits (so the last block of a
+   launch holds 3 fits) from one numpy-made state, after one launch of
+   K = 8 iterations, over a full solve (K = 8, stop at 99% done) and over
+   a solve of one iteration per launch to 100% done (so that fits done
+   before a launch share their warps with live ones). Limits: float64
+   alpha and c within 1e-12 relative and iterations, flags and done equal
+   on every fit; float32 median relative alpha difference <= 1e-6 and
+   iterations/flags/done equal on >= 99% of fits, and on every fit of
+   the last block alpha and c within 1e-6 and all equal.
 3. The plain route: the bench.py workload (B = 131072 exp_saturation fits
    on a shared 64-point grid, float32, numpy default_rng(0), starts
    0.7-1.4x the truth) through curve_fit_batch(separable=True,
@@ -26,6 +32,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 5. Times, after warm-up, with torch.cuda.synchronize() around each timed
    region: the routes of phases 3 and 4 and the plain reference route, and
    one K = 8 launch of the kernel against its plain version (CUDA events).
+5b. The lanes sweep: one K = 8 launch at the main path's shapes (B =
+   131072, m = 64, float32) for G = 1, 2, 4, 8, 16, 32 lanes per fit:
+   its time (median of 20, CUDA events, as phase 5), its agreement with
+   the plain version at the same G (phase 2's float32 limits), its bound
+   and share, and the registers and spills ptxas reported for that
+   instance. G = 32 (a warp per fit) is the in-run baseline; the G that
+   lanes_per_fit(64) picks must beat it.
+5c. A measurement build of kernel_varpro (LSO_VARPRO_PROBE=1: every run
+   masked, as if none were whole) against the kernel at G = 2, 4, 8 on
+   phase 5b's launch: equal states, and both times (median of 20, CUDA
+   events, in the order kernel, variant, variant, kernel).
 6. The Gram kernel (gram_and_rhs(use_pallas=True)) and its plain version
    against a float64 Gram on the card, at (2^20, n) for n = 256, 128, 64,
    32, at config #3's (8192, 1024), at the tail shapes (1300, 32) and
@@ -63,14 +80,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    TF32 control), and phase 6's times and bound.
 
 The second-to-last line is a JSON object describing each kernel (times
-from phase 5 for kernel_varpro, from phase 6 at (2^20, 256) float32 for
-the Gram; bounds from this run's shapes and, for kernel_varpro, the
+from phase 5 for kernel_varpro, at the lanes the rule picks, and from
+phase 6 at (2^20, 256) float32 for the Gram; bounds from this run's shapes and, for kernel_varpro, the
 iterations its fits ran); the last is {"ok": true, "device": {...}}. The
 script needs one CUDA card and imports nothing of JAX.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +101,30 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 B_MAIN, M = 131_072, 64
 TOLS = dict(x_tol=1e-6, f_tol=1e-6, g_tol=1e-5)
 ITERATIONS, FRAC, RADIUS, K = 50, 0.99, 100.0, 8
+
+
+# Per basis: the truth's alpha range (coefficients ~ U(100, 400)).
+BASIS_ALPHA = {"exp_saturation": (1e-2, 6e-2), "power": (0.2, 0.8),
+               "michaelis_menten": (5.0, 40.0)}
+# The kernel's basis functors (csrc/kernel_varpro.cuh), by basis name.
+BASIS_FUNCTOR = {"exp_saturation": "ExpSaturation", "power": "Power",
+                 "michaelis_menten": "MichaelisMenten"}
+
+
+def basis_data(basis, B, m, seed):
+    """c phi(x, a) on a shared grid x in [1, 80]: grid, observations (f64),
+    starts 0.7-1.4x the truth's alpha."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(1.0, 80.0, m)
+    c = rng.uniform(100, 400, B)[:, None]
+    a = rng.uniform(*BASIS_ALPHA[basis], B)
+    if basis == "exp_saturation":
+        phi = 1.0 - np.exp(-a[:, None] * x)
+    elif basis == "power":
+        phi = x ** a[:, None]
+    else:
+        phi = x / (a[:, None] + x)
+    return x, c * phi, a * rng.uniform(0.7, 1.4, B)
 
 
 def bench_data(B, seed):
@@ -105,14 +147,6 @@ def check(ok, what):
     if not ok:
         raise AssertionError(f"FAILED: {what}")
     print(f"  ok: {what}")
-
-
-def agree(out_k, out_r):
-    """Share of fits whose iterations and all flags agree."""
-    same = out_k["iterations"] == out_r["iterations"]
-    for key in ("converged", "f_converged", "x_converged", "g_converged", "done"):
-        same &= out_k[key] == out_r[key]
-    return float(same.double().mean())
 
 
 def sync_time(fn):
@@ -148,51 +182,21 @@ def main():
           f"{torch.cuda.device_count()} device(s), device 0: {name}")
     _build.load()
     print(f"kernels built and loaded in {_build.build_seconds:.2f} s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    ptxas = ptxas_report(_build.build_log)
+    varpro = {k: v for k, v in ptxas.items() if "varpro" in k}
+    for name_, (regs, st, ld) in ptxas.items():
+        if "varpro" not in name_:
+            print(f"  ptxas: {name_}: {regs} registers, spill stores {st} B, loads {ld} B")
+    print(f"  ptxas: {len(varpro)} kernel_varpro instances, "
+          f"{sum(1 for v in varpro.values() if v[1])} with spills, registers "
+          f"{min(v[0] for v in varpro.values())}-{max(v[0] for v in varpro.values())}")
+    for name_, (regs, st, ld) in sorted(varpro.items()):
+        if st:
+            print(f"  ptxas: spills in {name_}: {regs} registers, spill stores "
+                  f"{st} B, loads {ld} B")
 
     # -- phase 2: kernel against its plain version ------------------------
-    print("== phase 2: kernel_varpro vs plain PyTorch version (B=4099, m=64)")
-    xd, Y_np, x0_np, _ = bench_data(4099, seed=1)
-    limits = {torch.float64: (1e-12, 0.999), torch.float32: (1e-6, 0.99)}
-    for dt, (med_lim, agree_lim) in limits.items():
-        np_dt = np.float64 if dt == torch.float64 else np.float32
-        x = torch.tensor(xd, dtype=dt, device=dev)
-        Y = torch.tensor(Y_np, dtype=dt, device=dev)
-        state0 = torch.tensor(kernel_state(x0_np[:, 1], RADIUS, np_dt), device=dev)
-        tols = (TOLS["x_tol"], TOLS["f_tol"], TOLS["g_tol"])
-        sk = kv._launch_kernel("exp_saturation", x, Y, state0.clone(), K, tols,
-                               float(ITERATIONS), 8)
-        sr = kv._launch_reference("exp_saturation", x, Y, state0.clone(), K,
-                                  tols, float(ITERATIONS), None)
-        torch.cuda.synchronize()
-        ra = rel(sk[:, kv._ALPHA], sr[:, kv._ALPHA])
-        rc = rel(sk[:, kv._C], sr[:, kv._C])
-        same = ((sk[:, kv._ITERS] == sr[:, kv._ITERS])
-                & (sk[:, kv._FLAGS] == sr[:, kv._FLAGS])
-                & (sk[:, kv._DONE] == sr[:, kv._DONE])).double().mean().item()
-        print(f"  {dt} one launch K={K}: alpha rel max {ra.max().item():.3e} "
-              f"median {ra.median().item():.3e}; c rel max {rc.max().item():.3e} "
-              f"median {rc.median().item():.3e}; iterations/flags equal "
-              f"{same:.6f}")
-        check(ra.median().item() <= med_lim and same >= agree_lim,
-              f"{dt} one launch within median {med_lim:g}, agreement {agree_lim}")
-        kw = dict(TOLS, iterations=ITERATIONS, min_converged_fraction=FRAC,
-                  k_iters=K, radius=RADIUS)
-        ok_ = kv.varpro_lm_p1_kernel_solve("exp_saturation", x, Y,
-                                            state0[:, kv._ALPHA], **kw)
-        or_ = kv.varpro_lm_p1_reference_solve("exp_saturation", x, Y,
-                                               state0[:, kv._ALPHA], **kw)
-        ra = rel(ok_["alpha"], or_["alpha"])
-        rc = rel(ok_["coefficient"], or_["coefficient"])
-        same = agree(ok_, or_)
-        print(f"  {dt} full solve: alpha rel max {ra.max().item():.3e} median "
-              f"{ra.median().item():.3e}; c rel max {rc.max().item():.3e} "
-              f"median {rc.median().item():.3e}; iterations/flags equal "
-              f"{same:.6f}; converged {ok_['converged'].double().mean().item():.6f}")
-        check(ra.median().item() <= med_lim and same >= agree_lim,
-              f"{dt} full solve within median {med_lim:g}, agreement {agree_lim}")
+    phase_varpro_parity(dev)
 
     # -- phases 3 and 4: the main path ------------------------------------
     xdata, Y_np, x0_np, bt = bench_data(B_MAIN, seed=0)
@@ -265,38 +269,26 @@ def main():
     x = torch.tensor(xdata, dtype=torch.float32, device=dev)
     state0 = torch.tensor(kernel_state(x0_np[:, 1], RADIUS, np.float32), device=dev)
     tols = (TOLS["x_tol"], TOLS["f_tol"], TOLS["g_tol"])
-    sk = kv._launch_kernel("exp_saturation", x, Y, state0.clone(), K, tols,
-                           float(ITERATIONS), 8)
-    sr = kv._launch_reference("exp_saturation", x, Y, state0.clone(), K, tols,
-                              float(ITERATIONS), None)
+    sk, sr = one_launch("exp_saturation", x, Y, state0, tols)
     cols = [kv._ALPHA, kv._C]
     max_abs = (sk[:, cols] - sr[:, cols]).abs().max().item()
-    med_rel = rel(sk[:, kv._ALPHA], sr[:, kv._ALPHA]).median().item()
-    print(f"  one launch K={K} at B={B_MAIN}: alpha/c max abs diff {max_abs:.3e}, "
-          f"alpha median rel diff {med_rel:.3e}")
-    check(med_rel <= 1e-6, "main-shape launch median alpha rel diff <= 1e-6")
+    check_parity(f"one launch K={K} at B={B_MAIN}", state_parity(sk, sr),
+                 torch.float32, kv.lanes_per_fit(M))
+    print(f"  alpha/c max abs diff {max_abs:.3e}")
 
-    def event_ms(launch, n=20):
-        starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-        for i in range(n):
-            st = state0.clone()
-            starts[i].record()
-            launch("exp_saturation", x, Y, st, K, tols, float(ITERATIONS), 8)
-            ends[i].record()
-        torch.cuda.synchronize()
-        return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
-
-    event_ms(kv._launch_kernel, 3)  # warm-up
-    event_ms(kv._launch_reference, 3)
-    ms_k = event_ms(kv._launch_kernel)
-    ms_r = event_ms(kv._launch_reference)
+    launch_ms(kv._launch_kernel, x, Y, state0, tols, 3)  # warm-up
+    launch_ms(kv._launch_reference, x, Y, state0, tols, 3)
+    ms_k = launch_ms(kv._launch_kernel, x, Y, state0, tols)
+    ms_r = launch_ms(kv._launch_reference, x, Y, state0, tols)
     fit_iters = int((sk[:, kv._ITERS] - state0[:, kv._ITERS]).sum().item())
     bound_k, bound_by_k = varpro_bound(B_MAIN, M, fit_iters, 4)
-    print(f"  one launch K={K}: kernel {ms_k:.4f} ms, plain version {ms_r:.4f} ms "
-          f"(median of 20, CUDA events); bound {bound_k:.4f} ms ({bound_by_k}; "
-          f"{fit_iters} fit-iterations), kernel at {bound_k / ms_k:.1%} of it; "
-          f"no single library call computes it [{smi}]")
+    print(f"  one launch K={K}, {kv.lanes_per_fit(M)} lanes per fit: kernel "
+          f"{ms_k:.4f} ms, plain version {ms_r:.4f} ms (median of 20, CUDA "
+          f"events); bound {bound_k:.4f} ms ({bound_by_k}; {fit_iters} "
+          f"fit-iterations), kernel at {bound_k / ms_k:.1%} of it (at most 50% "
+          f"without FMA contraction); no single library call computes it [{smi}]")
+    phase_lanes_sweep(x, Y, state0, tols, ptxas, smi)
+    phase_mask_probe(x, Y, state0, tols, smi)
 
     gram_cmp = phase_gram(dev, smi)
     phase_gram_probes(dev, smi)
@@ -306,7 +298,7 @@ def main():
     print(json.dumps({"kernels": [{
         "name": "kernel_varpro",
         "route": "cuda",
-        "source": "leastsquaresoptim_jl_torch/csrc/kernel_varpro.cu",
+        "source": "leastsquaresoptim_jl_torch/csrc/kernel_varpro.cuh",
         "replaces": "leastsquaresoptim_jl_tpu/ops/kernel_varpro.py:161",
         "launches": main_launches,
         "max_abs_err": max_abs,
@@ -325,6 +317,241 @@ def main():
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def one_launch(basis, x, Y, state0, tols, lanes=None):
+    """One K-iteration launch of the kernel and of its plain version at
+    ``lanes`` from ``state0``: (kernel state, plain state)."""
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    sk = kv._launch_kernel(basis, x, Y, state0.clone(), K, tols,
+                           float(ITERATIONS), lanes=lanes)
+    sr = kv._launch_reference(basis, x, Y, state0.clone(), K, tols,
+                              float(ITERATIONS), lanes=lanes)
+    torch.cuda.synchronize()
+    return sk, sr
+
+
+def rel_diff(a, b):
+    """|a - b| / |b| per fit, 0 where the two are equal (NaNs included)."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return torch.where(same, torch.zeros((), dtype=torch.float64, device=a.device),
+                       rel(a, b))
+
+
+def state_parity(sk, sr):
+    """(alpha rel diffs, c rel diffs, per-fit equality of iterations, flags
+    and done) of the kernel's and the plain version's (B, 8) states."""
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    same = ((sk[:, kv._ITERS] == sr[:, kv._ITERS])
+            & (sk[:, kv._FLAGS] == sr[:, kv._FLAGS])
+            & (sk[:, kv._DONE] == sr[:, kv._DONE]))
+    return (rel_diff(sk[:, kv._ALPHA], sr[:, kv._ALPHA]),
+            rel_diff(sk[:, kv._C], sr[:, kv._C]), same)
+
+
+def solve_parity(ok_, or_):
+    """state_parity of two solves' result dicts (every flag compared)."""
+    same = ok_["iterations"] == or_["iterations"]
+    for key in ("converged", "f_converged", "x_converged", "g_converged", "done"):
+        same &= ok_[key] == or_[key]
+    return (rel_diff(ok_["alpha"], or_["alpha"]),
+            rel_diff(ok_["coefficient"], or_["coefficient"]), same)
+
+
+# Kernel against its plain version. float64: alpha and c within 1e-12
+# relative and every fit equal. float32: median alpha within 1e-6 and
+# >= 99% of fits equal, and every fit of the launch's last block within
+# 1e-6 and equal.
+PARITY_LIMITS = {torch.float64: 1e-12, torch.float32: 1e-6}
+F32_AGREEMENT = 0.99
+
+
+def check_parity(what, parity, dt, lanes):
+    """Print one comparison and hold it to PARITY_LIMITS; the last block is
+    that of a launch at ``lanes`` lanes per fit and the default block."""
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    ra, rc, same = parity
+    B = ra.shape[0]
+    block_fits = kv._check_block_fits(None, lanes)
+    tail = slice((B - 1) // block_fits * block_fits, B)
+    lim = PARITY_LIMITS[dt]
+    share = same.double().mean().item()
+    tail_max = max(ra[tail].max().item(), rc[tail].max().item())
+    print(f"  {what}: alpha rel max {ra.max().item():.3e} median "
+          f"{ra.median().item():.3e}, c rel max {rc.max().item():.3e}, equal "
+          f"{share:.6f}; last block ({B - tail.start} fits): alpha/c rel max "
+          f"{tail_max:.3e}, equal {bool(same[tail].all())}")
+    if dt == torch.float64:
+        check(ra.max().item() <= lim and rc.max().item() <= lim and share == 1.0,
+              f"{what}: every fit within {lim:g} and equal")
+    else:
+        check(ra.median().item() <= lim and share >= F32_AGREEMENT
+              and tail_max <= lim and bool(same[tail].all()),
+              f"{what}: median within {lim:g}, {F32_AGREEMENT} equal, the last "
+              f"block within {lim:g} and equal")
+
+
+def phase_varpro_parity(dev):
+    """Phase 2: every basis at m = 64, 37, 1024 in float32 and float64,
+    kernel against its plain version (one launch and two solves)."""
+    from leastsquaresoptim_jl_torch.interop import kernel_state
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    print("== phase 2: kernel_varpro vs plain PyTorch version (B=4099)")
+    tols = (TOLS["x_tol"], TOLS["f_tol"], TOLS["g_tol"])
+    for basis in BASIS_ALPHA:
+        for m in (64, 37, 1024):
+            xd, Y_np, a0 = basis_data(basis, 4099, m, seed=1)
+            lanes = kv.lanes_per_fit(m)
+            for dt in PARITY_LIMITS:
+                np_dt = np.float64 if dt == torch.float64 else np.float32
+                x = torch.tensor(xd, dtype=dt, device=dev)
+                Y = torch.tensor(Y_np, dtype=dt, device=dev)
+                state0 = torch.tensor(kernel_state(a0, RADIUS, np_dt), device=dev)
+                what = f"{basis} m={m} {dt} ({lanes} lanes)"
+                check_parity(f"{what} one launch K={K}",
+                             state_parity(*one_launch(basis, x, Y, state0, tols)),
+                             dt, lanes)
+                for k_iters, frac in ((K, FRAC), (1, 1.0)):
+                    kw = dict(TOLS, iterations=ITERATIONS, min_converged_fraction=frac,
+                              k_iters=k_iters, radius=RADIUS)
+                    kv.launches = 0
+                    ok_ = kv.varpro_lm_p1_kernel_solve(basis, x, Y, state0[:, kv._ALPHA], **kw)
+                    n = kv.launches
+                    or_ = kv.varpro_lm_p1_reference_solve(basis, x, Y, state0[:, kv._ALPHA], **kw)
+                    conv = ok_["converged"].double().mean().item()
+                    check_parity(f"{what} solve K={k_iters} to {frac:g} done ({n} "
+                                 f"launches, converged {conv:.6f})",
+                                 solve_parity(ok_, or_), dt, lanes)
+
+
+def launch_ms(launch, x, Y, state0, tols, n=20, lanes=None):
+    """Median of ``n`` single K-iteration launches from ``state0``, each
+    between its own CUDA events."""
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    for i in range(n):
+        st = state0.clone()
+        starts[i].record()
+        launch("exp_saturation", x, Y, st, K, tols, float(ITERATIONS), lanes=lanes)
+        ends[i].record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
+def ptxas_report(log):
+    """{entry function: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v output."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\w+)'", line)
+        if hit:
+            name, spills = hit.group(1), (0, 0)
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if hit:
+            spills = (int(hit.group(1)), int(hit.group(2)))
+            continue
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and name:
+            out[name] = (int(hit.group(1)), *spills)
+            name = None
+    return out
+
+
+def varpro_instance(ptxas, dtype, basis, lanes, m):
+    """ptxas's (registers, spill stores, spill loads) of the kernel_varpro
+    instance that a launch at ``lanes`` and m samples runs, and its run S."""
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    S = kv._run(m, lanes)
+    pattern = re.compile(rf"varpro_lm_p1_kernelI{'f' if dtype == torch.float32 else 'd'}"
+                         rf"Li{lanes}ELi{S}ENS_\d+{BASIS_FUNCTOR[basis]}E")
+    hits = [v for k, v in ptxas.items() if pattern.search(k)]
+    return S, (hits[0] if len(hits) == 1 else None)
+
+
+def phase_lanes_sweep(x, Y, state0, tols, ptxas, smi):
+    """Phase 5b: one K = 8 launch at the main path's shapes for every G."""
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    B, m = Y.shape
+    print(f"== phase 5b: lanes per fit at B={B}, m={m}, float32, one K={K} launch")
+    ms = {}
+    for lanes in (1, 2, 4, 8, 16, 32):
+        sk, sr = one_launch("exp_saturation", x, Y, state0, tols, lanes)
+        check_parity(f"G={lanes} against the plain version at G={lanes}",
+                     state_parity(sk, sr), torch.float32, lanes)
+        launch_ms(kv._launch_kernel, x, Y, state0, tols, 3, lanes)  # warm-up
+        ms[lanes] = launch_ms(kv._launch_kernel, x, Y, state0, tols, 20, lanes)
+        its = sk[:, kv._ITERS] - state0[:, kv._ITERS]
+        fit_iters = int(its.sum().item())
+        # A warp iterates until its slowest fit is done.
+        per_warp = 32 // lanes
+        warp_its = torch.cat([its, its.new_zeros((-B) % per_warp)]).view(-1, per_warp)
+        warp_fit_iters = int(warp_its.max(dim=1).values.sum().item()) * per_warp
+        bound, bound_by = varpro_bound(B, m, fit_iters, 4)
+        S, rep_ = varpro_instance(ptxas, torch.float32, "exp_saturation", lanes, m)
+        regs = ("not found" if rep_ is None else
+                f"{rep_[0]} registers, spill stores {rep_[1]} B, loads {rep_[2]} B")
+        print(f"  G={lanes:2d} ({32 // lanes} fits per warp, {-(-m // lanes)} samples "
+              f"per lane, run S={S}): {ms[lanes]:.4f} ms (median of 20, CUDA events); "
+              f"{fit_iters} fit-iterations, "
+              f"{warp_fit_iters} run by the warps; bound {bound:.4f} ms "
+              f"({bound_by}), share {bound / ms[lanes]:.1%}; ptxas: {regs} [{smi}]")
+    chosen = kv.lanes_per_fit(m)
+    check(ms[chosen] < ms[32], f"the rule's G={chosen} ({ms[chosen]:.4f} ms) is faster "
+          f"than a warp per fit, G=32 ({ms[32]:.4f} ms)")
+
+
+def variant_launch(lib):
+    """``_launch_kernel`` in float32 through another build's library."""
+    from leastsquaresoptim_jl_torch import config
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    def launch(basis, x, Y, state, k_iters, tols, max_iters, lanes=None):
+        B, m = Y.shape
+        lanes = kv._check_lanes(m, lanes)
+        err = lib.lso_kernel_varpro_f32(
+            x.data_ptr(), Y.data_ptr(), state.data_ptr(), B, m, k_iters, *tols,
+            max_iters, config.MIN_STEP_QUALITY, config.MIN_TRUST_REGION_RADIUS,
+            config.MAX_TRUST_REGION_RADIUS, kv.BASES[basis][2], lanes,
+            kv._check_block_fits(None, lanes), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the measurement build failed to launch: CUDA error {err}")
+        return state
+    return launch
+
+
+def phase_mask_probe(x, Y, state0, tols, smi):
+    """Phase 5c: the kernel without its unmasked path (LSO_VARPRO_PROBE=1)
+    against the kernel, on phase 5b's launch."""
+    from leastsquaresoptim_jl_torch import _build
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    print("== phase 5c: kernel_varpro with every run masked (LSO_VARPRO_PROBE=1)")
+    t0 = time.perf_counter()
+    sources = sorted(p.name for p in _build.SOURCE_DIR.glob("kernel_varpro*.cu"))
+    lib = _build.load_variants(sources, {"masked": ["-DLSO_VARPRO_PROBE=1"]})["masked"]
+    print(f"  built in {time.perf_counter() - t0:.2f} s")
+    masked = variant_launch(lib)
+    for lanes in (2, 4, 8):
+        sk = kv._launch_kernel("exp_saturation", x, Y, state0.clone(), K, tols,
+                               float(ITERATIONS), lanes=lanes)
+        sm = masked("exp_saturation", x, Y, state0.clone(), K, tols,
+                    float(ITERATIONS), lanes=lanes)
+        torch.cuda.synchronize()
+        check(torch.equal(sk, sm), f"G={lanes}: the masked build's state equals the kernel's")
+        for fn in (kv._launch_kernel, masked):
+            launch_ms(fn, x, Y, state0, tols, 3, lanes)  # warm-up
+        order = (kv._launch_kernel, masked, masked, kv._launch_kernel)
+        t = [launch_ms(fn, x, Y, state0, tols, 20, lanes) for fn in order]
+        print(f"  G={lanes}: kernel {t[0]:.4f} and {t[3]:.4f} ms, every run masked "
+              f"{t[1]:.4f} and {t[2]:.4f} ms (median of 20, CUDA events, in that "
+              f"order: kernel, masked, masked, kernel) [{smi}]")
 
 
 def loop_ms(fn, n=20, warmup=3):
@@ -497,7 +724,7 @@ def phase_gram_probes(dev, smi):
     print("== phase 6b: Gram kernel measurement builds (LSO_GRAM_PROBE)")
     t0 = time.perf_counter()
     libs = _build.load_variants(
-        "gram.cu", {k: [f"-DLSO_GRAM_PROBE={v}"] for k, v in GRAM_PROBES.items()})
+        ["gram.cu"], {k: [f"-DLSO_GRAM_PROBE={v}"] for k, v in GRAM_PROBES.items()})
     libs = {"kernel": _build.load(), **libs}
     print(f"  {len(GRAM_PROBES)} builds in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(6)

@@ -4,7 +4,8 @@ At first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package for
 Hopper (``sm_90a``), one process per source, all started together, and
 links the objects into a shared library with a plain C interface, under
 ``build/torch_kernels/`` beside the package, named by a hash of the
-sources and flags (an unchanged tree reuses its library). The
+sources, the headers (``csrc/*.cuh``) and the flags (an unchanged tree
+reuses its library). The
 library is loaded with ``ctypes``; pointers and the stream are passed as
 ``c_void_p``. Nothing is fetched and nothing outside the package's
 ``csrc/`` is compiled. A failed build raises with nvcc's output.
@@ -13,7 +14,7 @@ library is loaded with ``ctypes``; pointers and the stream are passed as
 plain PyTorch versions of the kernels are, so that a kernel and its plain
 version can be compared bit for bit on the card.
 
-``load_variants`` builds one source again under extra flags (build-time
+``load_variants`` builds some sources again under extra flags (build-time
 defines such as gram.cu's ``LSO_GRAM_PROBE``), each variant into a library
 of its own, for measurements that the package itself never calls.
 """
@@ -41,8 +42,8 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 # name -> argtypes of the C entry points in csrc/
 _SIGNATURES = {
-    "lso_kernel_varpro_f32": [_P, _P, _P, _I, _I, _I] + [ctypes.c_float] * 7 + [_I, _I, _P],
-    "lso_kernel_varpro_f64": [_P, _P, _P, _I, _I, _I] + [ctypes.c_double] * 7 + [_I, _I, _P],
+    "lso_kernel_varpro_f32": [_P, _P, _P, _I, _I, _I] + [ctypes.c_float] * 7 + [_I, _I, _I, _P],
+    "lso_kernel_varpro_f64": [_P, _P, _P, _I, _I, _I] + [ctypes.c_double] * 7 + [_I, _I, _I, _P],
     "lso_gram_f32": [_P, _P, _L, _I, _L, _I, _P, _P, _P],
     "lso_gram_bf16": [_P, _P, _L, _I, _L, _I, _P, _P, _P],
     "lso_gram_config": [_I, _I, ctypes.POINTER(_I)],
@@ -73,7 +74,7 @@ def _build(jobs):
     for sources, extra in jobs:
         flags = [*NVCC_FLAGS, *extra]
         digest = hashlib.sha256(" ".join(flags).encode())
-        for src in sources:
+        for src in [*sources, *sorted(SOURCE_DIR.glob("*.cuh"))]:
             digest.update(src.name.encode())
             digest.update(src.read_bytes())
         lib_path = BUILD_DIR / f"kernels_{digest.hexdigest()[:16]}.so"
@@ -137,9 +138,11 @@ def load():
     return _lib
 
 
-def load_variants(source, variants):
-    """``{name: extra nvcc flags}`` -> ``{name: library}``: ``csrc/<source>``
-    alone, built once per variant (all compiles started together)."""
+def load_variants(sources, variants):
+    """``{name: extra nvcc flags}`` -> ``{name: library}``: the ``csrc/``
+    files named in ``sources`` alone, built once per variant (all compiles
+    started together)."""
     names = list(variants)
-    paths = _build([([SOURCE_DIR / source], list(variants[k])) for k in names])
+    files = [SOURCE_DIR / src for src in sources]
+    paths = _build([(files, list(variants[k])) for k in names])
     return {k: _open(p) for k, p in zip(names, paths)}

@@ -3,8 +3,9 @@
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/ops/kernel_varpro.py``:
 K whole Levenberg-Marquardt iterations of the VarPro-reduced n = 1 problem
 per kernel launch, for B independent fits, with each fit's state held on
-chip. The kernel is CUDA C++ for Hopper (``csrc/kernel_varpro.cu``, one
-warp per fit); between launches the host checks the fraction-stop quorum,
+chip. The kernel is CUDA C++ for Hopper (``csrc/kernel_varpro.cuh``, G
+lanes per fit and 32 / G fits per warp, G from ``lanes_per_fit``);
+between launches the host checks the fraction-stop quorum,
 so the stop contract matches batch.py's at K-iteration granularity: fits
 freeze at their own convergence iteration, and only stragglers may run up
 to K-1 extra iterations before the batch stops.
@@ -26,7 +27,12 @@ kernel launches (the plain version never adds to it).
 
 A CUDA kernel takes no Python closure, so the model is a named basis
 (``BASES``) compiled into the kernel, not the JAX version's
-``phi_fn``/``dphi_fn``. The JAX version pads the batch to a block multiple
+``phi_fn``/``dphi_fn``: ``exp_saturation`` (1 - exp(-a x)), ``power``
+(x^a, as exp(a log x) with log x taken once per launch) and
+``michaelis_menten`` (x / (a + x)), the n = 1 entries of the JAX
+package's SEPARABLE table. Its n = 2 entries (``gaussian``,
+``logistic``) cannot go through this kernel: it steps one nonlinear
+parameter per fit. The JAX version pads the batch to a block multiple
 with copies of fit 0; here the kernel masks the ragged last block itself.
 """
 
@@ -47,44 +53,129 @@ _NS = 8
 launches = 0
 
 
-def _exp_saturation(x, a):
-    """phi = 1 - exp(-a x) and dphi = x exp(-a x)."""
-    e = torch.exp(-a * x)
-    return 1.0 - e, x * e
+# Each basis takes u = prep(x), computed once per launch, and returns
+# (phi, dphi) at (u, a) with the kernel's arithmetic (kernel_varpro.cuh).
+def _exp_saturation(u, a):
+    """phi = 1 - exp(-a x) and dphi = x exp(-a x); u = x."""
+    e = torch.exp(-a * u)
+    return 1.0 - e, u * e
 
 
-# basis name -> (plain (phi, dphi), the kernel's basis code)
-BASES = {"exp_saturation": (_exp_saturation, 0)}
+def _power(u, a):
+    """phi = x^a = exp(a log x) and dphi = x^a log x; u = log x."""
+    p = torch.exp(a * u)
+    return p, p * u
 
-# One warp per fit holds at most 32 samples per lane.
+
+def _michaelis_menten(u, a):
+    """phi = x / (a + x) and dphi = -x / (a + x)^2; u = x."""
+    inv = 1.0 / (a + u)
+    p = u * inv
+    return p, -(p * inv)
+
+
+def _same(x):
+    return x
+
+
+# basis name -> (prep, plain (phi, dphi), the kernel's basis code)
+BASES = {
+    "exp_saturation": (_same, _exp_saturation, 0),
+    "power": (torch.log, _power, 1),
+    "michaelis_menten": (_same, _michaelis_menten, 2),
+}
+
 MAX_M = 1024
+_LANES = (1, 2, 4, 8, 16, 32)
+# The (G, S) instances the kernel is compiled for (kernel_varpro.cuh,
+# launch_instance), S the run of samples a lane holds in registers: those
+# lanes_per_fit reaches at any m <= 1024, then the other layouts of the
+# lanes sweep at m = 64.
+_INSTANCES = frozenset(
+    [(1, 1), (1, 2), (1, 4), (1, 8), (1, 16), (2, 16), (4, 16), (8, 16),
+     (16, 16), (32, 16), (32, 32)]
+    + [(1, 64), (2, 32), (8, 8), (16, 4), (32, 2)])
 
 
-def _lane_sum(v):
-    """Sum over the last axis in the kernel's order: lane l first adds its
-    samples l, l + 32, ... in turn, then a halving tree over the 32 lanes
-    (the value every lane holds after the kernel's xor butterfly)."""
+def lanes_per_fit(m):
+    """G, the lanes per fit: the least power of two that leaves each lane
+    at most 16 samples, and at most a warp (32 lanes, 32 samples each at
+    m = 1024). m = 64 takes 4 lanes, so a warp runs 8 fits."""
+    g = 1
+    while g < 32 and 16 * g < m:
+        g *= 2
+    return g
+
+
+def _run(m, lanes):
+    """S, the run a lane holds at m samples and G = ``lanes``: the least
+    power of two >= ceil(m / G)."""
+    s = 1
+    while s * lanes < m:
+        s *= 2
+    return s
+
+
+def _check_lanes(m, lanes):
+    """The lanes a launch at m samples runs: ``lanes``, or the rule's. The
+    plain version takes what the kernel takes."""
+    if m > MAX_M:
+        raise ValueError(f"the kernel takes m <= {MAX_M} samples, got m={m}")
+    g = lanes_per_fit(m) if lanes is None else lanes
+    if g not in _LANES:
+        raise ValueError(f"lanes must be one of {_LANES}, got {lanes}")
+    if (g, _run(m, g)) not in _INSTANCES:
+        raise ValueError(f"no kernel instance runs m={m} at {g} lanes per fit")
+    return g
+
+
+# Threads of one block at most (the kernel's launch bounds).
+MAX_BLOCK_THREADS = 256
+
+
+def _check_block_fits(block_fits, lanes):
+    """Fits per thread block: ``block_fits``, or the most a block holds. A
+    block holds whole warps, at most 256 threads."""
+    if block_fits is None:
+        return MAX_BLOCK_THREADS // lanes
+    threads = block_fits * lanes
+    if block_fits < 1 or threads % 32 or threads > MAX_BLOCK_THREADS:
+        raise ValueError(
+            f"block_fits * lanes must be a multiple of 32 up to "
+            f"{MAX_BLOCK_THREADS} (whole warps in one block), got "
+            f"block_fits={block_fits}, lanes={lanes}")
+    return block_fits
+
+
+def _lane_sum(v, lanes):
+    """Sum over the last axis in the kernel's order: lane l of the fit's
+    ``lanes`` first adds its contiguous run of L = ceil(m / lanes) samples
+    l L, l L + 1, ... in turn, then a halving tree over the lanes (the
+    value every lane holds after the kernel's xor butterfly)."""
     m = v.shape[-1]
-    k = -(-m // 32)
-    if k * 32 != m:
-        v = torch.nn.functional.pad(v, (0, k * 32 - m))
-    v = v.reshape(tuple(v.shape[:-1]) + (k, 32))
-    s = v[..., 0, :]
-    for j in range(1, k):
-        s = s + v[..., j, :]
-    w = 32
+    run = -(-m // lanes)
+    if run * lanes != m:
+        v = torch.nn.functional.pad(v, (0, run * lanes - m))
+    v = v.reshape(tuple(v.shape[:-1]) + (lanes, run))
+    s = v[..., 0]
+    for j in range(1, run):
+        s = s + v[..., j]
+    w = lanes
     while w > 1:
         w //= 2
         s = s[..., :w] + s[..., w:2 * w]
     return s[..., 0]
 
 
-def _iteration_reference(basis, x, y, state, tols, max_iters):
+def _iteration_reference(basis, x, y, state, tols, max_iters, lanes=None):
     """One LM iteration for every fit, plain PyTorch: x (m,), y (B, m),
     state (B, 8); returns the new state. The arithmetic and the summation
-    order are the kernel's."""
+    order are those of the kernel at ``lanes`` lanes per fit (default
+    ``lanes_per_fit(m)``)."""
     x_tol, f_tol, g_tol = tols
-    phi_fn = BASES[basis][0]
+    prep, phi_fn, _ = BASES[basis]
+    lanes = lanes_per_fit(y.shape[-1]) if lanes is None else lanes
+    u = prep(x)
     eps = torch.finfo(y.dtype).eps
     tiny = torch.finfo(y.dtype).tiny
 
@@ -95,29 +186,32 @@ def _iteration_reference(basis, x, y, state, tols, max_iters):
     iters = state[:, _ITERS]
     active = (1.0 - done) > 0
 
+    def lane_sum(v):
+        return _lane_sum(v, lanes)
+
     def coeffs(a):
-        P, dP = phi_fn(x, a[:, None])          # (B, m)
-        n2 = _lane_sum(P * P)
+        P, dP = phi_fn(u, a[:, None])          # (B, m)
+        n2 = lane_sum(P * P)
         floor2 = (eps * n2 + tiny) * eps
         R = torch.sqrt(n2 + floor2)
-        q = P / R[:, None]
-        z = _lane_sum(q * y)
+        q = P * (1.0 / R)[:, None]             # one reciprocal per fit
+        z = lane_sum(q * y)
         c = z / R
         r = y - z[:, None] * q
         return P, dP, R, z, c, r
 
     P, dP, R, z, c, r = coeffs(alpha)
-    ssr = _lane_sum(r * r)
+    ssr = lane_sum(r * r)
 
     # Exact VarPro Jacobian of the reduced residual.
-    dn2 = 2.0 * _lane_sum(P * dP)
+    dn2 = 2.0 * lane_sum(P * dP)
     dR = dn2 * (1.0 + eps * eps) / (2.0 * R)
-    dz = _lane_sum(dP * y) / R - z * dR / R
+    dz = lane_sum(dP * y) / R - z * dR / R
     dc = dz / R - z * dR / (R * R)
     Jr = -(dc[:, None] * P + c[:, None] * dP)
 
-    g = _lane_sum(Jr * Jr)                     # J'J (1x1)
-    b = _lane_sum(Jr * r)                      # J'r
+    g = lane_sum(Jr * Jr)                      # J'J (1x1)
+    b = lane_sum(Jr * r)                       # J'r
     maxabs_gr = torch.abs(b)
 
     damp = g / delta
@@ -125,7 +219,7 @@ def _iteration_reference(basis, x, y, state, tols, max_iters):
     alpha_t = alpha - dx
 
     _, _, _, _, c_t, r_t = coeffs(alpha_t)
-    ared = _lane_sum((r - r_t) * (r + r_t))
+    ared = lane_sum((r - r_t) * (r + r_t))
     pred = torch.abs(2.0 * dx * b - dx * dx * g)
     rho = torch.where(pred > 0, ared / pred, torch.zeros_like(pred))
 
@@ -161,23 +255,27 @@ def _iteration_reference(basis, x, y, state, tols, max_iters):
     return torch.where(active[:, None], new, state)
 
 
-def _launch_reference(basis, x, Y, state, k_iters, tols, max_iters, block_fits):
-    """K plain iterations; returns the new state."""
+def _launch_reference(basis, x, Y, state, k_iters, tols, max_iters,
+                      block_fits=None, lanes=None):
+    """K plain iterations in the kernel's order at ``lanes`` lanes per fit
+    (default ``lanes_per_fit(m)``); returns the new state. ``block_fits``
+    does not change the result and is not used."""
     for _ in range(k_iters):
-        state = _iteration_reference(basis, x, Y, state, tols, max_iters)
+        state = _iteration_reference(basis, x, Y, state, tols, max_iters, lanes)
     return state
 
 
-def _launch_kernel(basis, x, Y, state, k_iters, tols, max_iters, block_fits):
-    """One launch of the CUDA kernel: K iterations, state updated in place."""
+def _launch_kernel(basis, x, Y, state, k_iters, tols, max_iters,
+                   block_fits=None, lanes=None):
+    """One launch of the CUDA kernel: K iterations, state updated in place,
+    ``lanes`` lanes per fit (default ``lanes_per_fit(m)``) and
+    ``block_fits`` fits per thread block (default 256 threads' worth)."""
     global launches
     from .._build import load
 
     B, m = Y.shape
-    if m > MAX_M:
-        raise ValueError(f"the kernel takes m <= {MAX_M} samples, got m={m}")
-    if not 1 <= block_fits <= 32:
-        raise ValueError(f"block_fits must be in 1..32 on CUDA, got {block_fits}")
+    lanes = _check_lanes(m, lanes)
+    block_fits = _check_block_fits(block_fits, lanes)
     for name, t in (("x", x), ("Y", Y), ("state", state)):
         if t.device != Y.device or t.dtype != Y.dtype or not t.is_contiguous():
             raise ValueError(
@@ -193,7 +291,7 @@ def _launch_kernel(basis, x, Y, state, k_iters, tols, max_iters, block_fits):
             x.data_ptr(), Y.data_ptr(), state.data_ptr(), B, m, k_iters,
             x_tol, f_tol, g_tol, max_iters, config.MIN_STEP_QUALITY,
             config.MIN_TRUST_REGION_RADIUS, config.MAX_TRUST_REGION_RADIUS,
-            BASES[basis][1], block_fits, stream,
+            BASES[basis][2], lanes, block_fits, stream,
         )
     if err != 0:
         raise RuntimeError(f"kernel_varpro launch failed: CUDA error {err}")
@@ -202,7 +300,8 @@ def _launch_kernel(basis, x, Y, state, k_iters, tols, max_iters, block_fits):
 
 
 def _solve(launch, basis, x_grid, Y, alpha0, *, x_tol, f_tol, g_tol,
-           iterations, min_converged_fraction, k_iters, block_fits, radius):
+           iterations, min_converged_fraction, k_iters, block_fits, lanes,
+           radius):
     if basis not in BASES:
         raise ValueError(f"unknown basis {basis!r}; supported: {sorted(BASES)}")
     if Y.ndim != 2:
@@ -211,6 +310,8 @@ def _solve(launch, basis, x_grid, Y, alpha0, *, x_tol, f_tol, g_tol,
         raise ValueError(f"Y must be float32 or float64, got {Y.dtype}")
     B, m = Y.shape
     dt = Y.dtype
+    lanes = _check_lanes(m, lanes)
+    block_fits = _check_block_fits(block_fits, lanes)
     Y = Y.contiguous()
     radius0 = config.DEFAULT_RADIUS_LM if radius is None else radius
 
@@ -231,7 +332,7 @@ def _solve(launch, basis, x_grid, Y, alpha0, *, x_tol, f_tol, g_tol,
     ndone = 0
     while ndone < need and n_launches < max_launches:
         state = launch(basis, x, Y, state, k_iters, tols, float(iterations),
-                       block_fits)
+                       block_fits, lanes)
         n_launches += 1
         ndone = int(state[:, _DONE].to(torch.int32).sum())  # host sync
 
@@ -260,7 +361,7 @@ def varpro_lm_p1_kernel_solve(
     iterations: int = 50,
     min_converged_fraction: float = 0.99,
     k_iters: int = 8,
-    block_fits: int = 8,
+    block_fits: int = None,
     radius: float = None,
     device=None,
 ):
@@ -272,8 +373,11 @@ def varpro_lm_p1_kernel_solve(
     Launches ``k_iters`` LM iterations at a time until
     ``min_converged_fraction`` of the batch is done (converged, non-finite
     or at the iteration cap), at most ceil(iterations / k_iters) launches.
-    ``block_fits`` is the number of fits (one warp each) per CUDA thread
-    block. Returns a dict: ``alpha``, ``coefficient`` (the optimal linear
+    Each fit takes G = ``lanes_per_fit(m)`` lanes of a warp, which also
+    sets the plain version's summation order; ``block_fits`` is the number
+    of fits per CUDA thread block (``block_fits * G`` threads, whole warps,
+    at most 256; default 256 threads) and does not change the result.
+    Returns a dict: ``alpha``, ``coefficient`` (the optimal linear
     coefficient at the final alpha), ``converged``, ``x/f/g_converged``,
     ``iterations`` and ``done``.
 
@@ -291,7 +395,7 @@ def varpro_lm_p1_kernel_solve(
         launch, basis, x_grid, Y, alpha0, x_tol=x_tol, f_tol=f_tol,
         g_tol=g_tol, iterations=iterations,
         min_converged_fraction=min_converged_fraction, k_iters=k_iters,
-        block_fits=block_fits, radius=radius,
+        block_fits=block_fits, lanes=None, radius=radius,
     )
 
 
@@ -310,10 +414,11 @@ def varpro_lm_p1_reference_solve(
     radius: float = None,
 ):
     """``varpro_lm_p1_kernel_solve`` through the plain PyTorch version on
-    any device (the kernel's comparison on the card)."""
+    any device (the kernel's comparison on the card), in the kernel's
+    summation order."""
     return _solve(
         _launch_reference, basis, x_grid, torch.as_tensor(Y), alpha0,
         x_tol=x_tol, f_tol=f_tol, g_tol=g_tol, iterations=iterations,
         min_converged_fraction=min_converged_fraction, k_iters=k_iters,
-        block_fits=None, radius=radius,
+        block_fits=None, lanes=None, radius=radius,
     )

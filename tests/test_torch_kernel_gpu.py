@@ -26,39 +26,108 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _problem(np_dt, B, m, seed=1):
+# Per basis: phi(x, a) in numpy and the truth's alpha range.
+BASES = {
+    "exp_saturation": (lambda x, a: 1.0 - np.exp(-a * x), (1e-2, 6e-2)),
+    "power": (lambda x, a: x ** a, (0.2, 0.8)),
+    "michaelis_menten": (lambda x, a: x / (a + x), (5.0, 40.0)),
+}
+
+
+def _problem(np_dt, B, m, seed=1, basis="exp_saturation"):
     rng = np.random.default_rng(seed)
     xd = np.linspace(1.0, 80.0, m)
-    bt = np.stack([rng.uniform(100, 400, B), rng.uniform(1e-2, 6e-2, B)], axis=1)
-    Y = (bt[:, :1] * (1.0 - np.exp(-bt[:, 1:2] * xd[None, :]))).astype(np_dt)
-    a0 = (bt[:, 1] * rng.uniform(0.7, 1.4, B)).astype(np_dt)
+    phi, (lo, hi) = BASES[basis]
+    c, a = rng.uniform(100, 400, B), rng.uniform(lo, hi, B)
+    Y = (c[:, None] * phi(xd[None, :], a[:, None])).astype(np_dt)
+    a0 = (a * rng.uniform(0.7, 1.4, B)).astype(np_dt)
     return xd, Y, a0
+
+
+# (m, lanes): the rule's G (None) and G = 1, 8, 32 where the kernel is
+# compiled for that layout, then every compiled (G, S) pair at m = G S,
+# so that each instance launch_instance names is launched.
+M_LANES = [(m, g) for m in (64, 37, 1024) for g in (None, 1, 8, 32)
+           if g is None or (g, tk._run(m, g)) in tk._INSTANCES]
+M_LANES += [(g * s, g) for g, s in sorted(tk._INSTANCES) if (g * s, g) not in M_LANES]
+
+
+def _rel(a, b):
+    """|a - b| / |b| per fit, 0 where the two are equal (NaNs included)."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return torch.where(same, 0.0, (a.double() - b.double()).abs() / b.double().abs())
+
+
+def _hold(alpha_k, alpha_r, c_k, c_r, same, dtype, lanes):
+    """Kernel against plain version, ``same`` the per-fit equality of
+    iterations and flags. float64: every fit's alpha and c within 1e-12
+    relative and every fit equal. float32: median alpha within 1e-6, >= 99%
+    of fits equal, and every fit of the launch's last (ragged) block
+    within 1e-6 and equal."""
+    ra, rc = _rel(alpha_k, alpha_r), _rel(c_k, c_r)
+    if dtype == torch.float64:
+        assert ra.max().item() <= 1e-12 and rc.max().item() <= 1e-12
+        assert bool(same.all())
+        return
+    block_fits = tk._check_block_fits(None, lanes)
+    tail = slice((ra.shape[0] - 1) // block_fits * block_fits, ra.shape[0])
+    assert ra.median().item() <= 1e-6
+    assert same.double().mean().item() >= 0.99
+    assert max(ra[tail].max().item(), rc[tail].max().item()) <= 1e-6
+    assert bool(same[tail].all())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m", [64, 37, 1024])
-def test_one_launch_matches_plain_version(cuda_device, dtype, m):
-    """One K = 8 launch against the plain version from the same state. The
-    two sum in the same order without FMA contraction, so they differ at
-    most by expf/exp: median alpha rel diff <= 1e-12 (f64) / 1e-6 (f32),
-    iterations and flags equal on >= 99.9% / 99% of fits."""
+@pytest.mark.parametrize("basis", sorted(BASES))
+@pytest.mark.parametrize("m,lanes", M_LANES)
+def test_one_launch_matches_plain_version(cuda_device, dtype, basis, m, lanes):
+    """One K = 8 launch against the plain version at the same G from the
+    same state, B = 4099 (the last block holds 3 fits at every G). The two
+    sum in the same order without FMA contraction, so they differ at most
+    by exp and log (``_hold``'s limits)."""
     np_dt = np.float64 if dtype == torch.float64 else np.float32
-    xd, Y, a0 = _problem(np_dt, 4099, m)
+    xd, Y, a0 = _problem(np_dt, 4099, m, basis=basis)
     x = torch.tensor(xd, dtype=dtype, device=cuda_device)
     Yc = torch.tensor(Y, device=cuda_device)
     s0 = torch.tensor(kernel_state(a0, 100.0, np_dt), device=cuda_device)
     before = tk.launches
-    sk = tk._launch_kernel("exp_saturation", x, Yc, s0.clone(), 8, TOLS, 50.0, 8)
-    sr = tk._launch_reference("exp_saturation", x, Yc, s0.clone(), 8, TOLS, 50.0, None)
+    sk = tk._launch_kernel(basis, x, Yc, s0.clone(), 8, TOLS, 50.0, lanes=lanes)
+    sr = tk._launch_reference(basis, x, Yc, s0.clone(), 8, TOLS, 50.0, lanes=lanes)
     torch.cuda.synchronize()
     assert tk.launches == before + 1
-    med_lim, agree_lim = (1e-12, 0.999) if dtype == torch.float64 else (1e-6, 0.99)
-    rel = (sk[:, tk._ALPHA] - sr[:, tk._ALPHA]).abs() / sr[:, tk._ALPHA].abs()
-    assert rel.median().item() <= med_lim
     same = ((sk[:, tk._ITERS] == sr[:, tk._ITERS])
-            & (sk[:, tk._FLAGS] == sr[:, tk._FLAGS]))
-    assert same.double().mean().item() >= agree_lim
+            & (sk[:, tk._FLAGS] == sr[:, tk._FLAGS])
+            & (sk[:, tk._DONE] == sr[:, tk._DONE]))
+    _hold(sk[:, tk._ALPHA], sr[:, tk._ALPHA], sk[:, tk._C], sr[:, tk._C], same,
+          dtype, tk._check_lanes(m, lanes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("basis", sorted(BASES))
+@pytest.mark.parametrize("m", [64, 37, 1024])
+def test_solve_with_done_fits_matches_plain_version(cuda_device, dtype, basis, m):
+    """One iteration per launch until every fit is done, B = 4099: from the
+    second launch on, fits that were done before the launch share their
+    warps with live ones (they load and store nothing). Kernel against
+    the plain version, ``_hold``'s limits on every flag."""
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    xd, Y, a0 = _problem(np_dt, 4099, m, basis=basis)
+    Yc = torch.tensor(Y, device=cuda_device)
+    a0c = torch.tensor(a0, device=cuda_device)
+    kw = dict(x_tol=1e-6, f_tol=1e-6, g_tol=1e-5, radius=100.0, k_iters=1,
+              min_converged_fraction=1.0)
+    before = tk.launches
+    ok_ = tk.varpro_lm_p1_kernel_solve(basis, xd, Yc, a0c, **kw)
+    or_ = tk.varpro_lm_p1_reference_solve(basis, xd, Yc, a0c, **kw)
+    assert tk.launches - before >= 3
+    assert ok_["done"].all()
+    same = ok_["iterations"] == or_["iterations"]
+    for key in ("converged", "f_converged", "x_converged", "g_converged", "done"):
+        same &= ok_[key] == or_[key]
+    _hold(ok_["alpha"], or_["alpha"], ok_["coefficient"], or_["coefficient"], same,
+          dtype, tk.lanes_per_fit(m))
 
 
 @pytest.mark.gpu

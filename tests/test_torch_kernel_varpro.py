@@ -6,7 +6,11 @@ tests hold it against the JAX kernel (Pallas interpret mode, as
 tests/test_kernel_varpro.py runs it) in float64 — alpha and c to 1e-12
 relative (the same formulas; reduction order and exp's last ulp differ),
 iterations and flags equal — and mirror every contract of the JAX
-kernel's own tests. The CUDA kernel itself is tested on the card by
+kernel's own tests. The plain version sums in the kernel's order at G
+lanes per fit; the parity tests run it at G = 1, 4 and 32 (one lane per
+fit, the layout the rule picks at m = 64, a warp per fit), and for each
+n = 1 basis the kernel compiles, at m = 64, where the three are compiled
+layouts. The CUDA kernel itself is tested on the card by
 tests/test_torch_kernel_gpu.py.
 """
 
@@ -23,9 +27,19 @@ from leastsquaresoptim_jl_torch.ops import kernel_varpro as tk
 from leastsquaresoptim_jl_tpu.ops import kernel_varpro as jk
 
 B, M = 192, 32
+# m of the parity tests at G = 1, 4, 32: the kernel compiles these G there.
+M_LANES = 64
 TOLS = dict(x_tol=1e-6, f_tol=1e-6, g_tol=1e-5)
 PHI = lambda x, a: 1.0 - jnp.exp(-a * x)  # noqa: E731
 DPHI = lambda x, a: x * jnp.exp(-a * x)  # noqa: E731
+LANES = (1, 4, 32)
+# The other n = 1 bases as the JAX kernel takes them: (phi, dphi, range
+# of the truth's alpha).
+JAX_BASES = {
+    "power": (lambda x, a: x ** a, lambda x, a: x ** a * jnp.log(x), (0.2, 0.8)),
+    "michaelis_menten": (lambda x, a: x / (a + x),
+                         lambda x, a: -x / (a + x) ** 2, (5.0, 40.0)),
+}
 
 
 def _problem(dtype=np.float32, B=B, m=M, seed=0):
@@ -49,18 +63,29 @@ def _np(out):
     return {k: v.numpy() for k, v in out.items()}
 
 
-def test_iteration_reference_matches_jax_iteration():
-    """Three iterations of the plain version against the JAX kernel body
-    from one numpy-made state (f64)."""
-    xd, Y, p0, _ = _problem(np.float64, B=40)
+def _plain_solve(basis, xd, Y, alpha0, lanes, block_fits=None, **kw):
+    """The solve through the plain version at G = ``lanes`` lanes per fit
+    (the public solves take the G of ``lanes_per_fit``)."""
+    args = dict(TOLS, iterations=50, min_converged_fraction=1.0, k_iters=4)
+    args.update(kw)
+    return _np(tk._solve(tk._launch_reference, basis, xd, torch.tensor(Y),
+                         torch.tensor(alpha0), block_fits=block_fits,
+                         lanes=lanes, radius=None, **args))
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_iteration_reference_matches_jax_iteration(lanes):
+    """Three iterations of the plain version at G = ``lanes`` against the
+    JAX kernel body from one numpy-made state (f64)."""
+    xd, Y, p0, _ = _problem(np.float64, B=40, m=M_LANES)
     s_np = kernel_state(p0[:, 1], 100.0)
     tols = (1e-6, 1e-6, 1e-5)
     sj, st = jnp.asarray(s_np), torch.tensor(s_np)
     for _ in range(3):
-        sj = jk._iteration(PHI, DPHI, jnp.asarray(xd).reshape(1, M),
+        sj = jk._iteration(PHI, DPHI, jnp.asarray(xd).reshape(1, M_LANES),
                            jnp.asarray(Y), sj, tols, 50.0)
         st = tk._iteration_reference("exp_saturation", torch.tensor(xd),
-                                     torch.tensor(Y), st, tols, 50.0)
+                                     torch.tensor(Y), st, tols, 50.0, lanes)
     sj, st = np.asarray(sj), st.numpy()
     exact = [tk._ITERS, tk._DONE, tk._CONV, tk._FLAGS]
     np.testing.assert_array_equal(st[:, exact], sj[:, exact])
@@ -76,24 +101,101 @@ SCENARIOS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_solve_matches_jax_kernel_f64(name):
-    Bn, poisoned, frac, k, iters = SCENARIOS[name]
-    xd, Y, p0, _ = _problem(np.float64, B=Bn)
-    a0 = p0[:, 1].copy()
-    a0[:poisoned] *= 400.0
-    kw = dict(TOLS, iterations=iters, min_converged_fraction=frac, k_iters=k)
-    oj = jk.varpro_lm_p1_kernel_solve(PHI, DPHI, xd, jnp.asarray(Y),
-                                      jnp.asarray(a0), block_fits=64,
-                                      interpret=True, **kw)
-    ot = _np(tk.varpro_lm_p1_kernel_solve("exp_saturation", xd,
-                                          torch.tensor(Y), torch.tensor(a0), **kw))
+def _assert_matches_jax(ot, oj):
+    """Iterations and flags equal, alpha and c within 1e-12 relative."""
     for key in ("converged", "f_converged", "x_converged", "g_converged",
                 "iterations", "done"):
         np.testing.assert_array_equal(ot[key], np.asarray(oj[key]), err_msg=key)
     for key in ("alpha", "coefficient"):
         np.testing.assert_allclose(ot[key], np.asarray(oj[key]), rtol=1e-12,
                                    err_msg=key)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_solve_matches_jax_kernel_f64(name, lanes):
+    Bn, poisoned, frac, k, iters = SCENARIOS[name]
+    xd, Y, p0, _ = _problem(np.float64, B=Bn, m=M_LANES)
+    a0 = p0[:, 1].copy()
+    a0[:poisoned] *= 400.0
+    kw = dict(TOLS, iterations=iters, min_converged_fraction=frac, k_iters=k)
+    oj = jk.varpro_lm_p1_kernel_solve(PHI, DPHI, xd, jnp.asarray(Y),
+                                      jnp.asarray(a0), block_fits=64,
+                                      interpret=True, **kw)
+    ot = _plain_solve("exp_saturation", xd, Y, a0, lanes, **kw)
+    _assert_matches_jax(ot, oj)
+
+
+def test_ragged_end_matches_jax_kernel_f64():
+    """B = 100 at G = 4 with 24 fits per block (100 = 4 x 24 + 4): the
+    solve takes a block size that does not divide B, and every fit equals
+    the JAX kernel's. On the CPU the plain version ignores the blocks, so
+    this holds the block checks and the batch; the kernel's ragged last
+    block is held to the plain version on the card
+    (tests/test_torch_kernel_gpu.py)."""
+    xd, Y, p0, _ = _problem(np.float64, B=100, m=M_LANES, seed=3)
+    kw = dict(TOLS, iterations=50, min_converged_fraction=1.0, k_iters=4)
+    oj = jk.varpro_lm_p1_kernel_solve(PHI, DPHI, xd, jnp.asarray(Y),
+                                      jnp.asarray(p0[:, 1]), block_fits=64,
+                                      interpret=True, **kw)
+    ot = _plain_solve("exp_saturation", xd, Y, p0[:, 1], 4, block_fits=24, **kw)
+    assert ot["alpha"].shape == (100,)
+    _assert_matches_jax(ot, oj)
+
+
+def _basis_problem(basis, B=B, m=M, seed=0):
+    """c phi(x, a) on x in [1, 80], c ~ U(100, 400), a in the basis's range,
+    starts 0.7-1.4x the truth (f64)."""
+    rng = np.random.default_rng(seed)
+    xd = np.linspace(1.0, 80.0, m)
+    lo, hi = JAX_BASES[basis][2]
+    c, a = rng.uniform(100, 400, B), rng.uniform(lo, hi, B)
+    phi = np.asarray(JAX_BASES[basis][0](xd[None, :], a[:, None]))
+    return xd, c[:, None] * phi, a * rng.uniform(0.7, 1.4, B), a
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("basis", sorted(JAX_BASES))
+def test_basis_matches_jax_kernel_f64(basis, lanes):
+    """The power and michaelis_menten bases against the JAX kernel given
+    the same phi / dphi as jnp closures (interpret mode, f64)."""
+    xd, Y, a0, a_true = _basis_problem(basis, m=M_LANES)
+    phi, dphi, _ = JAX_BASES[basis]
+    kw = dict(TOLS, iterations=50, min_converged_fraction=1.0, k_iters=4)
+    oj = jk.varpro_lm_p1_kernel_solve(phi, dphi, xd, jnp.asarray(Y),
+                                      jnp.asarray(a0), block_fits=64,
+                                      interpret=True, **kw)
+    ot = _plain_solve(basis, xd, Y, a0, lanes, **kw)
+    assert ot["converged"].mean() > 0.99
+    assert np.median(np.abs(ot["alpha"] - a_true) / a_true) < 1e-6
+    _assert_matches_jax(ot, oj)
+
+
+def test_lanes_per_fit_rule():
+    """At most 16 samples per lane, at most a warp per fit."""
+    rule = {1: 1, 16: 1, 17: 2, 37: 4, 64: 4, 65: 8, 256: 16, 257: 32, 1024: 32}
+    assert {m: tk.lanes_per_fit(m) for m in rule} == rule
+
+
+def test_rule_picks_compiled_instances():
+    """At every m the kernel takes, the rule's G and its run are a
+    compiled (G, S) pair, so the public solves always reach an instance."""
+    for m in range(1, tk.MAX_M + 1):
+        assert tk._check_lanes(m, None) == tk.lanes_per_fit(m)
+    assert tk._run(64, 4) == 16 and tk._run(37, 4) == 16 and tk._run(1024, 32) == 32
+
+
+def test_lanes_and_block_fits_are_checked():
+    for m, kw, match in ((80, dict(lanes=3), "lanes must be one of"),
+                         (80, dict(lanes=1), "no kernel instance runs m=80"),
+                         (64, dict(lanes=4, block_fits=4), "whole warps"),
+                         (64, dict(lanes=32, block_fits=33), "whole warps")):
+        xd, Y, p0, _ = _problem(B=8, m=m)
+        with pytest.raises(ValueError, match=match):
+            _plain_solve("exp_saturation", xd, Y, p0[:, 1], **kw)
+    xd, Y, p0, _ = _problem(B=8, m=1025)
+    with pytest.raises(ValueError, match="m <= 1024"):
+        _solve(xd, Y, p0[:, 1])
 
 
 def test_kernel_matches_lax_route_optimum():
@@ -199,5 +301,5 @@ def test_launch_counter_stays_zero_on_cpu():
 def test_unknown_basis_raises():
     xd, Y, p0, _ = _problem(B=4)
     with pytest.raises(ValueError, match="unknown basis"):
-        tk.varpro_lm_p1_kernel_solve("power", xd, torch.tensor(Y),
+        tk.varpro_lm_p1_kernel_solve("gaussian", xd, torch.tensor(Y),
                                      torch.tensor(p0[:, 1]), **TOLS)
