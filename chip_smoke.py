@@ -1,5 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU: the batched curve-fit path,
-the Gram kernel and the row-sharded Gram, and the single-fit dense path.
+the Gram kernel and the row-sharded Gram, the single-fit dense path, and
+the matrix-free path (LSMR over Jacobian operators) at BASELINE.json config
+#4's size.
 
     python3 chip_smoke.py
 
@@ -78,6 +80,42 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    iterations/s; (c) config #3's J at the float32 final iterate through the
    Gram kernel and its plain version, errors (phase 6's limit, with its
    TF32 control), and phase 6's times and bound.
+
+9. The matrix-free path. No hand-written kernel lies on it (the JAX
+   package has none there either): both kernels' counters are reset before
+   9b and must read 0 after 9e.
+   (a) LSMR alone (ops/lsmr_core.lsmr) against float64 torch.linalg.lstsq
+   at (4096, 256) in float64 (atol = btol = 1e-12; x within 1e-8 relative)
+   and float32 (1e-6; within 1e-4), undamped and with lam = 0.7; the
+   damped system as a (residual, damp) tuple operator against the dense
+   solve of (A'A + diag(damp)) x = A'b; solver/lsmr.solve_damped (btol =
+   0.5, Jacobi preconditioner) against the same recurrences on the
+   materialized preconditioned stack: equal iterations and istop, x within
+   the dtype's limit, and a descent direction.
+   (b) BASELINE.json config #4 at full size, the generator of
+   benchmarks/bench_sparse_lsmr.py:40-72: n = 100000 parameters, blocks =
+   10, m = 1000000 residuals, float32, LevenbergMarquardt(LSMR(maxiter=60)),
+   10 iterations, tolerances 0, once with the Hutchinson column norms and
+   once with the closed-form colnorms_fn; before it the closed form against
+   AD column norms at blocks = 3, n = 200 (within 1e-4). Limits: finite,
+   final ssr not above the start's, inner_istop in 1..7, mul_calls > 0, no
+   Jacobian in the result, peak allocated memory under 1 GB. Prints outer
+   LM iterations/s (host clock ending in torch.cuda.synchronize(), after a
+   warm-up solve, best and median of 3), total matvecs, LSMR iterations
+   ((mul_calls - 2 iterations) / 2: each outer iteration adds the
+   gradient's and the predicted reduction's matvec) and LSMR iterations/s;
+   then one torch.profiler pass over a solve of each: CUDA kernels, device
+   ms, busy share, device-to-host copies (the host reads).
+   (c) The same at blocks = 100 (m = 10000000) with colnorms_fn from the
+   oscillatory start x0 + 0.1 (-1)^i, Options(iterations=100), float32
+   default tolerances: converged, iterations, seconds, peak memory.
+   (d) Geodesic LM on Rosenbrock, float64: converged within 1e-6 of [1, 1]
+   in fewer iterations than plain LM, f_calls = 3 iterations + 1.
+   (e) solve_sharded and make_sharded_operator on a one-rank NCCL group
+   (m = 65536, n = 64, float32, tanh rows) against the unsharded solve of
+   the same data: both converged, equal LM iterations, matvecs within one
+   LSMR iteration per LM iteration, minimizers within 1e-5; and the
+   Gauss-Newton LSMR step of the unsharded operator within 1e-5.
 
 The second-to-last line is a JSON object describing each kernel (times
 from phase 5 for kernel_varpro, at the lanes the rule picks, and from
@@ -294,6 +332,7 @@ def main():
     phase_gram_probes(dev, smi)
     gram_launches = phase_sharded_gram(dev)
     phase_single_fit(dev, smi)
+    phase_matrix_free(dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "kernel_varpro",
@@ -893,6 +932,323 @@ def phase_single_fit(dev, smi):
         check(max(et) > GRAM_LIMIT,
               f"{dt}: the TF32 control exceeds the limit {GRAM_LIMIT:g}")
         gram_times(J, r, smi, f"{dt} config #3's J (8192, 1024)")
+
+
+# -- phase 9: the matrix-free path ------------------------------------------
+
+# Relative error limits of an LSMR solution against float64 lstsq, at the
+# tolerances atol = btol phase 9a runs each dtype with.
+LSMR_TOLS = {torch.float64: (1e-12, 1e-8), torch.float32: (1e-6, 1e-4)}
+
+
+def rel_err(x, ref):
+    return (torch.linalg.vector_norm(x.double() - ref)
+            / torch.linalg.vector_norm(ref)).item()
+
+
+def phase_lsmr(dev):
+    """Phase 9a: LSMR alone against dense float64 solves."""
+    from leastsquaresoptim_jl_torch import config
+    from leastsquaresoptim_jl_torch.ops import operators
+    from leastsquaresoptim_jl_torch.ops.lsmr_core import lsmr
+    from leastsquaresoptim_jl_torch.solver import lsmr as lsmr_solver
+
+    m, n, lam = 4096, 256, 0.7
+    print(f"== phase 9a: LSMR against float64 lstsq at ({m}, {n})")
+    rng = np.random.default_rng(9)
+    A64 = torch.tensor(rng.standard_normal((m, n)), device=dev)
+    b64 = torch.tensor(rng.standard_normal(m), device=dev)
+    damp64 = torch.tensor(np.linspace(0.5, 2.0, n), device=dev)
+    gram = A64.mT @ A64
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    refs = {
+        "undamped": torch.linalg.lstsq(A64, b64.unsqueeze(-1)).solution.squeeze(-1),
+        "lam": torch.linalg.solve(gram + lam**2 * eye, A64.mT @ b64),
+        "damp": torch.linalg.solve(gram + torch.diag(damp64), A64.mT @ b64),
+    }
+    for dt, (tol, limit) in LSMR_TOLS.items():
+        A, b, damp = A64.to(dt), b64.to(dt), damp64.to(dt)
+        x0 = torch.zeros(n, dtype=dt, device=dev)
+        kw = dict(maxiter=4 * n, atol=tol, btol=tol)
+        for what, extra in (("undamped", {}), ("lam", dict(lam=lam))):
+            x, st = lsmr(lambda v: A @ v, lambda u: A.mT @ u, b, x0, **kw, **extra)
+            err = rel_err(x, refs[what])
+            print(f"  {dt} {what}: {st.iterations} iterations, istop {st.istop}, "
+                  f"relative error {err:.3e}")
+            check(st.converged and st.mvps == 2 * st.iterations and err <= limit,
+                  f"{dt} {what} LSMR converged within {limit:g} of the dense solve")
+        sd = torch.sqrt(damp)
+        x, st = lsmr(lambda v: (A @ v, sd * v), lambda u: A.mT @ u[0] + sd * u[1],
+                     (b, torch.zeros_like(x0)), x0, **kw)
+        err = rel_err(x, refs["damp"])
+        print(f"  {dt} (residual, damp) tuple operator: {st.iterations} iterations, "
+              f"istop {st.istop}, relative error {err:.3e}")
+        check(st.converged and err <= limit,
+              f"{dt} tuple-range LSMR within {limit:g} of the dense damped solve")
+        # solve_damped against its own system, materialized: the stack
+        # [A P; diag(sqrt(damp)) P] with P the Jacobi preconditioner.
+        op = operators.from_matrix(A)
+        dx, st = lsmr_solver.solve_damped(op, b, damp)
+        p = 1.0 / torch.sqrt(op.colnorms2() + damp)
+        stacked = torch.cat([A * p, torch.diag(sd * p)])
+        xs, ss = lsmr(lambda v: stacked @ v, lambda u: stacked.mT @ u,
+                      torch.cat([b, torch.zeros_like(x0)]), x0, maxiter=m + n,
+                      atol=config.LSMR_ATOL, btol=config.LSMR_DAMPED_BTOL)
+        err = rel_err(dx, (p * xs).double())
+        cos = (torch.dot(dx.double(), refs["damp"])
+               / torch.linalg.vector_norm(dx.double())
+               / torch.linalg.vector_norm(refs["damp"])).item()
+        print(f"  {dt} solve_damped: {st.iterations} iterations, istop {st.istop} "
+              f"(stacked: {ss.iterations}, {ss.istop}), relative difference "
+              f"{err:.3e}, cosine to the exact damped step {cos:.4f}")
+        check((st.iterations, st.istop) == (ss.iterations, ss.istop) and err <= limit
+              and cos > 0,
+              f"{dt} solve_damped equals LSMR on the stacked system within {limit:g}")
+
+
+def banded_problem(blocks, n, dtype, dev):
+    """The banded boundary-value system of BASELINE.json configs #4 and #5
+    (benchmarks/bench_sparse_lsmr.py:40-72): residual (b, i) couples
+    x[i-1], x[i], x[i+1] plus a cubic source, over ``blocks`` shifted
+    observation blocks. Returns (residual_fn, colnorms_fn, x0)."""
+    h = 1.0 / (n + 1)
+    t = torch.arange(1, n + 1, dtype=dtype, device=dev) * h
+    shifts = torch.linspace(0.5, 1.5, blocks, dtype=dtype, device=dev)
+
+    def residual_fn(x):
+        zero = x.new_zeros(1)
+        xm = torch.cat([zero, x[:-1]])
+        xp = torch.cat([x[1:], zero])
+        core = 2.0 * x - xm - xp
+        src = (x[None, :] + t[None, :] * shifts[:, None] + 1.0) ** 3
+        return (core[None, :] + (h * h / 2.0) * src).reshape(-1)
+
+    def colnorms_fn(x):
+        # diag(J'J) in closed form: row (b, i) has 2 + (3h^2/2)(x_i + t_i
+        # s_b + 1)^2 at column i and -1 at columns i-1 and i+1.
+        c = (3.0 * h * h / 2.0) * (x[None, :] + t[None, :] * shifts[:, None] + 1.0) ** 2
+        diag = torch.sum((2.0 + c) ** 2, dim=0)
+        nb = torch.full_like(x, 2.0 * blocks)
+        nb[0] -= float(blocks)
+        nb[-1] -= float(blocks)
+        return diag + nb
+
+    return residual_fn, colnorms_fn, t * (t - 1.0)
+
+
+CONFIG4_N = 100_000  # parameters of configs #4 and #5
+
+
+def config4_problem(blocks, dev, exact_colnorms):
+    from leastsquaresoptim_jl_torch import least_squares_problem, matrix_free_problem
+
+    n = CONFIG4_N
+    residual_fn, colnorms_fn, x0 = banded_problem(blocks, n, torch.float32, dev)
+    if exact_colnorms:
+        problem = matrix_free_problem(residual_fn, x0, output_length=blocks * n,
+                                      colnorms=colnorms_fn)
+    else:
+        problem = least_squares_problem(residual_fn, x0, output_length=blocks * n,
+                                        materialize_jacobian=False)
+    return problem, residual_fn
+
+
+def profile_solve(run, what, smi):
+    """One torch.profiler pass over ``run()``: CUDA kernels, device ms,
+    busy share (device ms over the wall time of the profiled call) and
+    device-to-host copies (each a host read)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        secs, _ = sync_time(run)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print(f"  {what}: the profiler recorded no device events: not measured")
+        return
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    dtoh = sum(1 for e in kernels if "Memcpy DtoH" in e.name)
+    launches = sum(1 for e in kernels if "Memcpy" not in e.name and "Memset" not in e.name)
+    print(f"  {what} (profiled solve, {secs * 1e3:.1f} ms with the profiler on): "
+          f"{launches} CUDA kernels, {device_ms:.3f} ms of device time, busy share "
+          f"{device_ms / (secs * 1e3):.4f}, {dtoh} device-to-host copies [{smi}]")
+
+
+def phase_config4(dev, smi):
+    """Phases 9b and 9c: configs #4 (m = 1M) and #5's scale (m = 10M)."""
+    from leastsquaresoptim_jl_torch import LSMR, LevenbergMarquardt, Options, solve
+
+    print("== phase 9b: closed-form column norms against AD at blocks=3, n=200")
+    residual_fn, colnorms_fn, x0 = banded_problem(3, 200, torch.float32, dev)
+    J = torch.func.jacfwd(residual_fn)(x0 + 0.3)
+    ad = torch.sum(J * J, dim=0)
+    err = ((ad - colnorms_fn(x0 + 0.3)).abs() / ad.clamp(min=1e-30)).max().item()
+    print(f"  largest relative difference {err:.3e}")
+    check(err < 1e-4, "the closed-form column norms equal AD's within 1e-4")
+
+    optimizer = LevenbergMarquardt(LSMR(maxiter=60))
+    opts = Options(iterations=10, x_tol=0.0, f_tol=0.0, g_tol=0.0)
+    reps = 3
+    for exact in (False, True):
+        label = "closed-form colnorms_fn" if exact else "Hutchinson column norms"
+        problem, residual_fn = config4_problem(10, dev, exact)
+        x0 = problem.x0
+        print(f"== phase 9b: config #4, m={problem.m}, n={problem.n}, float32, "
+              f"LM(LSMR(maxiter=60)), 10 iterations, {label}")
+        ssr0 = torch.sum(residual_fn(x0) ** 2).item()
+
+        def run(x=x0):
+            return solve(problem, optimizer, options=opts, x0=x)
+
+        run()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        timed = [sync_time(lambda i=i: run(x0 * (1.0 + 1e-6 * (i + 1))))
+                 for i in range(reps)]
+        peak = torch.cuda.max_memory_allocated()
+        ts = [t for t, _ in timed]
+        raw = timed[-1][1]
+        its, mvps = int(raw["iterations"]), int(raw["mul_calls"])
+        istop, ssr = int(raw["inner_istop"]), float(raw["ssr"])
+        lsmr_its = (mvps - 2 * its) // 2
+        best, med = min(ts), float(np.median(ts))
+        print(f"  {its} LM iterations, {mvps} matvecs, {lsmr_its} LSMR iterations, "
+              f"inner_istop {istop}, ssr {ssr0!r} -> {ssr!r}; peak allocated "
+              f"{peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB held before) [{smi}]")
+        print(f"  LM iterations/s {its / best:.3f} (best of {reps}), "
+              f"{its / med:.3f} (median); LSMR iterations/s {lsmr_its / best:.1f} "
+              f"(best), {lsmr_its / med:.1f} (median); solve {best:.4f} s best, "
+              f"{med:.4f} s median [{smi}]")
+        check(bool(torch.isfinite(raw["minimizer"]).all())
+              and raw["minimizer"].shape == (problem.n,) and np.isfinite(ssr),
+              f"{label}: finite ({problem.n},) minimizer")
+        check(ssr <= ssr0, f"{label}: final ssr not above the start's")
+        check(1 <= istop <= 7 and mvps > 0, f"{label}: inner_istop in 1..7, matvecs counted")
+        check(raw["jacobian"] is None, f"{label}: no Jacobian was formed")
+        check(peak < 1e9, f"{label}: peak allocated memory under 1 GB")
+        profile_solve(run, label, smi)
+
+    problem, residual_fn = config4_problem(100, dev, True)
+    print(f"== phase 9c: m={problem.m}, n={problem.n}, float32, closed-form "
+          "colnorms_fn, to convergence from the oscillatory start")
+    sign = torch.where(torch.arange(problem.n, device=dev) % 2 == 0, 1.0, -1.0)
+    x0c = problem.x0 + 0.1 * sign
+    conv_opts = Options(iterations=100)
+    torch.cuda.reset_peak_memory_stats()
+    for attempt in ("first call", "second call"):
+        secs, raw = sync_time(lambda: solve(problem, optimizer, options=conv_opts, x0=x0c))
+        its, mvps = int(raw["iterations"]), int(raw["mul_calls"])
+        print(f"  {attempt}: converged {bool(raw['converged'])}, {its} LM iterations, "
+              f"{mvps} matvecs, ssr {float(raw['ssr'])!r}, {secs:.3f} s "
+              f"({(mvps - 2 * its) // 2 / secs:.1f} LSMR iterations/s), peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{smi}]")
+    check(bool(raw["converged"]) and bool(torch.isfinite(raw["minimizer"]).all()),
+          "m = 10M converged to a finite minimizer")
+    check(raw["jacobian"] is None, "m = 10M: no Jacobian was formed")
+
+
+def phase_geodesic(dev):
+    """Phase 9d: geodesic LM on Rosenbrock, float64."""
+    from leastsquaresoptim_jl_torch import LevenbergMarquardt, optimize
+
+    print("== phase 9d: geodesic LM on Rosenbrock, float64")
+
+    def rosenbrock(x):
+        return torch.stack([1.0 - x[0], 100.0 * (x[1] - x[0] ** 2)])
+
+    x0 = torch.zeros(2, dtype=torch.float64, device=dev)
+    plain = optimize(rosenbrock, x0, LevenbergMarquardt())
+    geo = optimize(rosenbrock, x0, LevenbergMarquardt(geodesic=True))
+    err = float(np.abs(geo.minimizer - 1.0).max())
+    print(f"  plain LM {plain.iterations} iterations, geodesic {geo.iterations} "
+          f"({geo.f_calls} f_calls), max |x - 1| {err:.3e}")
+    check(plain.converged and geo.converged and err <= 1e-6,
+          "both converged, geodesic within 1e-6 of [1, 1]")
+    check(geo.iterations < plain.iterations, "geodesic LM takes fewer iterations")
+    check(geo.f_calls == 3 * geo.iterations + 1, "f_calls = 3 iterations + 1")
+
+
+def tanh_row(x, row):
+    a, y = row
+    return torch.tanh(torch.dot(a, x)) - y
+
+
+def phase_sharded_solve(dev):
+    """Phase 9e: the row-sharded solve and LSMR operator on one rank."""
+    import torch.distributed as dist
+
+    from leastsquaresoptim_jl_torch import least_squares_problem, parallel, solve
+    from leastsquaresoptim_jl_torch.ops import operators
+    from leastsquaresoptim_jl_torch.solver import lsmr as lsmr_solver
+
+    m, n = 65_536, 64
+    print(f"== phase 9e: solve_sharded on a one-rank NCCL group, m={m}, n={n}, float32")
+    rng = np.random.default_rng(11)
+    A = torch.tensor(rng.standard_normal((m, n), dtype=np.float32) / np.sqrt(n),
+                     dtype=torch.float32, device=dev)
+    x_true = torch.tensor(np.abs(rng.standard_normal(n, dtype=np.float32)) * 0.5,
+                          dtype=torch.float32, device=dev)
+    y = torch.tanh(A @ x_true) + 0.01 * torch.tensor(
+        rng.standard_normal(m, dtype=np.float32), device=dev)
+    x0 = torch.full((n,), 0.6, device=dev)
+
+    def whole(x):
+        return torch.func.vmap(lambda row: tanh_row(x, row))((A, y))
+
+    ref = solve(least_squares_problem(whole, x0, output_length=m,
+                                      materialize_jacobian=False))
+    op_ref = operators.from_matrix(A)
+    gn_ref, st_ref = lsmr_solver.solve_gn(op_ref, y)
+    parallel.initialize_multihost(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+    try:
+        rows = parallel.shard_rows((A, y))
+        raw = parallel.solve_sharded(tanh_row, rows, x0)
+        gn, st = lsmr_solver.solve_gn(parallel.make_sharded_operator(rows[0]), rows[1])
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    diff = (raw["minimizer"] - ref["minimizer"]).abs().max().item()
+    counts = [(int(r["iterations"]), int(r["mul_calls"]), int(r["inner_istop"]))
+              for r in (raw, ref)]
+    print(f"  sharded (iterations, matvecs, inner_istop) {counts[0]}, unsharded "
+          f"{counts[1]}, converged {bool(raw['converged'])}, max |x - x_unsharded| "
+          f"{diff:.3e}, max |x - x_true| "
+          f"{(raw['minimizer'] - x_true).abs().max().item():.3e}")
+    # One ulp in a float32 sum can move an inexact inner solve's stop by an
+    # iteration (measured, when the two paths summed the probe estimates
+    # from different layouts: 58 against 60 matvecs, x within 1.2e-7), so
+    # the matvecs may differ by one LSMR iteration per LM iteration.
+    check(bool(raw["converged"]) and bool(ref["converged"])
+          and counts[0][0] == counts[1][0]
+          and abs(counts[0][1] - counts[1][1]) <= 2 * counts[1][0] and diff <= 1e-5,
+          "solve_sharded equals the unsharded solve (both converged, equal LM "
+          "iterations, matvecs within one LSMR iteration each, x within 1e-5)")
+    gdiff = (gn - gn_ref).abs().max().item()
+    print(f"  sharded operator solve_gn: {st.iterations} iterations, istop {st.istop} "
+          f"(unsharded {st_ref.iterations}, {st_ref.istop}), max difference {gdiff:.3e}")
+    check(abs(st.iterations - st_ref.iterations) <= 1 and st.converged
+          and gdiff <= 1e-5,
+          "make_sharded_operator's Gauss-Newton step equals the unsharded "
+          "operator's within 1e-5")
+
+
+def phase_matrix_free(dev, smi):
+    """Phase 9: LSMR, config #4 and its 10M scale point, geodesic LM and
+    the row-sharded solve; no hand-written kernel may launch in it."""
+    from leastsquaresoptim_jl_torch.ops import gram
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    phase_lsmr(dev)
+    kv.launches = gram.launches = 0
+    phase_config4(dev, smi)
+    phase_geodesic(dev)
+    phase_sharded_solve(dev)
+    print(f"  launches on the matrix-free path (9b-9e): kernel_varpro {kv.launches}, "
+          f"gram {gram.launches}")
+    check(kv.launches == 0 and gram.launches == 0,
+          "config #4's path launches neither hand-written kernel (none lies on it)")
 
 
 if __name__ == "__main__":

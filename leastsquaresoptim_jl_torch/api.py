@@ -53,7 +53,8 @@ def solve(
     is not checked here (``optimize_problem`` checks it). ``fused``
     selects the fused evaluation schedule (default off, as in the JAX
     package): ``True`` or ``"ssr"`` with Cholesky carries the Gram
-    products instead of J (see the optimizer modules).
+    products instead of J; with another solver it carries J (see the
+    optimizer modules). A matrix-free problem takes no fused schedule.
     """
     optimizer = resolve(optimizer, problem)
     options = options or Options()

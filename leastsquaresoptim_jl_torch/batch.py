@@ -133,6 +133,11 @@ def _solve_batch_fraction(
         )
     if not isinstance(optimizer, LevenbergMarquardt):
         raise TypeError(f"unknown optimizer {optimizer!r}")
+    if optimizer.geodesic:
+        raise NotImplementedError(
+            "geodesic acceleration in batched solves is not ported yet; "
+            "it runs for one fit (solve / optimize)"
+        )
     if fused is None:
         fused = False  # same default as the JAX package's api.solve
 

@@ -41,6 +41,16 @@ def sumabs2(x):
     return torch.sum(x * x, dim=-1)
 
 
+def row_sum(v, reduce=None):
+    """Sum over the residual rows (the last axis). Every reduction over
+    rows in the optimizer loops and in LSMR goes through here, so that a
+    row-sharded problem (parallel/sharded.py) can complete it: ``reduce``
+    sums a tensor of per-shard partial sums over the shards (an
+    all-reduce); None on one process, where the local sum is the sum."""
+    s = torch.sum(v, dim=-1)
+    return s if reduce is None else reduce(s)
+
+
 # --- double-working-precision (dd) sum of squares ------------------------
 #
 # The fused-Gram "ssr" schedule (optimizer/levenberg_marquardt.py,

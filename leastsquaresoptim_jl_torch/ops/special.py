@@ -16,14 +16,38 @@ The derivative is exact by construction, d e/d s = x * e, through a
 ``torch.autograd.Function`` with forward-mode (``jvp``) and reverse-mode
 (``backward``) rules and a generated vmap rule — not autograd through the
 power ladder, which is a different rule with different bits.
+
+That rule is first order: PyTorch does not differentiate the output of a
+``torch.autograd.Function``'s ``jvp`` again, so a forward-over-forward pass
+through it reads a second derivative of zero. Code that nests two
+``torch.func.jvp`` (geodesic acceleration's f''[v, v]) does so inside
+``higher_order_derivatives()``, where the grid evaluates as the plain
+per-sample ``exp(s * x)``, which differentiates to any order.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import numpy as np
 import torch
 
-__all__ = ["make_exp_grid"]
+__all__ = ["make_exp_grid", "higher_order_derivatives"]
+
+_HIGHER_ORDER = contextvars.ContextVar("exp_grid_higher_order", default=False)
+
+
+@contextlib.contextmanager
+def higher_order_derivatives():
+    """Inside this context every ``make_exp_grid`` function evaluates as
+    the plain ``exp(s * x)``, so that nested ``torch.func`` derivatives
+    through it are right (see the module docstring)."""
+    token = _HIGHER_ORDER.set(True)
+    try:
+        yield
+    finally:
+        _HIGHER_ORDER.reset(token)
 
 
 def _pow_table(r, k: int):
@@ -114,6 +138,11 @@ class _ExpGrid(_Grid):
         self.core = core
 
     def __call__(self, s):
+        if _HIGHER_ORDER.get():
+            # A fresh grid tensor: one made under a transform must not
+            # outlive it in the cache.
+            x = torch.as_tensor(self.x_np, dtype=s.dtype, device=s.device)
+            return torch.exp(s.unsqueeze(-1) * x)
         return _ExpGridFn.apply(s, self)
 
 
@@ -122,7 +151,8 @@ def make_exp_grid(t0: float, dt: float, m: int):
 
     ``s`` is a tensor of any shape (...); the result is (..., m) in s's
     dtype and device. Differentiable in ``s`` (forward and reverse, and
-    under ``torch.func`` transforms) with the exact rule d e/d s = x * e.
+    under ``torch.func`` transforms) with the exact rule d e/d s = x * e,
+    to first order; second derivatives need ``higher_order_derivatives()``.
     """
     if m < 1:
         raise ValueError(f"m must be >= 1, got {m}")

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/optimizer/base.py``.
 Both optimizers are implemented for one fit; batched solves
-(``solve_batch``) take ``LevenbergMarquardt`` only so far.
+(``solve_batch``) take ``LevenbergMarquardt`` without geodesic
+acceleration only so far.
 """
 
 from __future__ import annotations
@@ -28,8 +29,11 @@ class Dogleg(AbstractOptimizer):
 @dataclasses.dataclass(frozen=True)
 class LevenbergMarquardt(AbstractOptimizer):
     """Levenberg-Marquardt optimizer tag (reference:
-    src/optimizer/levenberg_marquardt.jl). ``geodesic=True`` (geodesic
-    acceleration) is not implemented in this package yet."""
+    src/optimizer/levenberg_marquardt.jl). ``geodesic=True`` adds
+    geodesic acceleration (Transtrum & Sethna 2012): half the second-order
+    correction on each step, from the exact f''[dx, dx] and the same
+    damped solve, dropped where it exceeds ``config.GEODESIC_ALPHA`` times
+    the step; two more model evaluations per iteration."""
 
     solver: Optional[AbstractSolver] = None
     geodesic: bool = False

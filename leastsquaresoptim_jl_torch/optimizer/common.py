@@ -157,23 +157,30 @@ def update_trace(trace, opts: Options, it, ssr, maxabs_gr):
 
 
 class EvalSchedule(NamedTuple):
-    """Evaluation-schedule flags + fused evaluators for the LM loop.
+    """Evaluation-schedule flags + fused evaluators shared by the LM and
+    Dogleg loops.
 
     ``fused_gram``: Cholesky consumes J only through (J'J, J'r); the fused
     schedule evaluates residual and Gram products together at the TRIAL
     point and carries (G, b) instead of J.
+    ``fused_flat``: the fused schedule of the other solvers (QR, LSMR on a
+    dense J): residual and J are evaluated together at the trial point and
+    J rides the carry. (The JAX package carries J flattened, a matter of
+    its memory layout, hence the name; here it is carried as it is.)
     ``ssr_carry`` (``fused="ssr"``): additionally carry the SSR as a
     two-float (hi, lo) pair (ops/linalg.sumabs2_dd) and drop the residual
     vector from the carry; ``ared`` becomes a dd difference.
-    Unfused, the loop re-linearizes at x every iteration and takes the
-    residual from that shared primal (the JAX package's batched
-    ``drop_fcur`` schedule; recompute is bitwise the reuse because x is
-    unchanged on a rejected step). The JAX package's flat-J fused schedule
-    serves QR, which is not ported yet."""
+    ``carry_fcur``: the residual at x rides the carry. Unfused with a
+    shared primal (forward mode), the loop instead re-linearizes at x on
+    every fresh iteration and takes the residual from that evaluation (the
+    JAX package's batched ``drop_fcur`` schedule; recompute is bitwise the
+    reuse because x is unchanged on a rejected step)."""
 
     res_jac_fn: object
     res_gram_fn: Optional[object]
     fused_gram: bool
+    fused_flat: bool
+    carry_fcur: bool
     ssr_carry: bool = False
 
 
@@ -192,15 +199,11 @@ def build_eval_schedule(problem, solver_tag, fused) -> EvalSchedule:
             "a res_jac_fn (least_squares_problem builds one automatically)"
         )
     fused_gram = bool(fused) and isinstance(solver_tag, Cholesky)
+    fused_flat = bool(fused) and not fused_gram
     if ssr_carry and not fused_gram:
         raise ValueError(
             "fused='ssr' (the dd-SSR carry) applies to the fused-Gram "
             "schedule only — use the Cholesky solver"
-        )
-    if fused and not fused_gram:
-        raise NotImplementedError(
-            "the flat-J fused schedule serves the QR solver, which is not "
-            "ported yet"
         )
     res_jac_fn = problem.res_jac_fn
     res_gram_fn = None
@@ -210,23 +213,45 @@ def build_eval_schedule(problem, solver_tag, fused) -> EvalSchedule:
             G, b = gram_and_rhs(J, r)
             return r, G, b
 
-    return EvalSchedule(res_jac_fn, res_gram_fn, fused_gram, ssr_carry)
+    carry_fcur = not ssr_carry and (
+        bool(fused)
+        or not problem.materialize_jacobian
+        or not problem.res_jac_shares_primal
+    )
+    return EvalSchedule(
+        res_jac_fn, res_gram_fn, fused_gram, fused_flat, carry_fcur, ssr_carry
+    )
 
 
 def seed_eval(sched: EvalSchedule, problem, x):
     """Initial model evaluation for the loop carry.
 
     Returns ``(fcur, gram0, grhs0, jstate0)``: gram0/grhs0 are None unless
-    ``fused_gram``; jstate0 is the linearization point x (the Jacobian is
-    recomputed from it, never carried)."""
+    ``fused_gram``; jstate0 is J at x under ``fused_flat`` and else the
+    linearization point x (the Jacobian is recomputed from it, never
+    carried). A row-sharded residual holds this process's rows, so its
+    length is not held to the global ``problem.m``."""
     gram0 = grhs0 = None
+    jstate0 = x
     if sched.fused_gram:
         fcur, gram0, grhs0 = sched.res_gram_fn(x)
+    elif sched.fused_flat:
+        fcur, jstate0 = sched.res_jac_fn(x)
     else:
         fcur = problem.residual_fn(x)
-    if fcur.shape[-1] != problem.m:
+    if problem.row_reduce is None and fcur.shape[-1] != problem.m:
         raise ValueError(
             f"residual function returns {fcur.shape[-1]} values per fit, "
             f"expected {problem.m}"
         )
-    return fcur, gram0, grhs0, x
+    return fcur, gram0, grhs0, jstate0
+
+
+def require_single_fit_if_matrix_free(problem, x):
+    """Matrix-free solves take one fit; a batch of them is not ported."""
+    if not problem.materialize_jacobian and x.ndim != 1:
+        raise NotImplementedError(
+            "batched matrix-free solves are not ported yet: a problem with "
+            "materialize_jacobian=False takes one flat x, got shape "
+            f"{tuple(x.shape)}"
+        )

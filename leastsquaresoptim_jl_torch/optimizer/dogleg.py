@@ -22,32 +22,39 @@ scale-relative epsilon damping and are rescaled into what the pinned part
 leaves of the trust region.
 
 Schedules (common.EvalSchedule): unfused (re-linearize at x, evaluate the
-residual at the trial point; ``||J g||^2`` is taken as ``J @ g`` on the
-materialized J) and the fused-Gram schedules ``fused=True`` /
+residual at the trial point), the fused-Gram schedules ``fused=True`` /
 ``fused="ssr"`` with Cholesky, where every quantity the geometry needs is
 algebraic in the carried (G, b): dtd = diag(G), gradient = b, Cauchy
-denominator dgr'G dgr, Gauss-Newton step from G dgn = b.
+denominator dgr'G dgr, Gauss-Newton step from G dgn = b; and ``fused=True``
+with another solver, which carries J from the accepted trial evaluation.
+
+Outside Gram space the block sees the Jacobian as an operator
+(ops/operators.py): column norms, ``J'f``, ``||J dgr||^2`` through one
+matvec, and the solver's Gauss-Newton step. A matrix-free problem (one fit
+only) never forms J, and a row-sharded one completes its sums over rows
+through ``ops/linalg.row_sum``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from .. import config
+from ..ops import operators
 from ..ops.linalg import (
     clip_step_to_bounds,
-    colsumabs2,
     dd_diff,
     maxabs_projected_gradient,
-    sumabs2,
+    row_sum,
     sumabs2_dd,
     wdot,
     wnorm,
 )
 from ..problem import LeastSquaresProblem
-from ..solver import solver_fns
+from ..solver import ISTOP_DIRECT, solver_fns
 from ..solver.cholesky import solve_spd_system
 from .common import (
     STATUS_NOT_FINITE,
@@ -57,11 +64,12 @@ from .common import (
     assess_convergence,
     build_eval_schedule,
     init_trace,
+    require_single_fit_if_matrix_free,
     resolve_tolerances,
     seed_eval,
     update_trace,
 )
-from .levenberg_marquardt import _gmatvec, _jmatvec, _jrmatvec
+from .levenberg_marquardt import _gmatvec, istop_leaf
 
 
 def _safe_div(num, den):
@@ -83,13 +91,17 @@ def loop_pieces(
     and result leaf leads with its batch shape ``...``."""
     residual_fn = problem.residual_fn
     jac_fn = problem.jac_fn
+    materialize = problem.materialize_jacobian
+    reduce = problem.row_reduce
     solve_gn, solve_damped = solver_fns(solver_tag)
 
     sched = build_eval_schedule(problem, solver_tag, fused)
     res_jac_fn, res_gram_fn = sched.res_jac_fn, sched.res_gram_fn
-    fused_gram, ssr_carry = sched.fused_gram, sched.ssr_carry
+    fused_gram, fused_flat = sched.fused_gram, sched.fused_flat
+    carry_fcur, ssr_carry = sched.carry_fcur, sched.ssr_carry
 
     x = problem.x0 if x0 is None else x0
+    require_single_fit_if_matrix_free(problem, x)
     dt = x.dtype
     batch_shape = tuple(x.shape[:-1])
     x_tol, f_tol, g_tol = resolve_tolerances(opts, dt)
@@ -105,7 +117,7 @@ def loop_pieces(
     if ssr_carry:
         ssr, ssr_lo0 = sumabs2_dd(fcur)
     else:
-        ssr = sumabs2(fcur)
+        ssr = row_sum(fcur * fcur, reduce)
     false = full(False, torch.bool)
 
     trace = init_trace(opts, x)
@@ -128,10 +140,10 @@ def loop_pieces(
         f_calls=full(1, torch.int32),
         g_calls=full(0, torch.int32),
         mul_calls=full(0, torch.int32),
-        inner_istop=full(-1, torch.int32),
+        inner_istop=full(ISTOP_DIRECT, torch.int32),
         trace=trace,
     )
-    if fused_gram and not ssr_carry:
+    if carry_fcur:
         carry["fcur"] = fcur
     if ssr_carry:
         carry["ssr_lo"] = ssr_lo0
@@ -149,31 +161,42 @@ def loop_pieces(
     def expensive(c, x):
         """The expensive block (reference :85-117): linearization, dtd,
         gradient and KKT measure, scaled steepest descent, Cauchy length,
-        Gauss-Newton step. Fused: (G, b) arrived with the accepted trial
-        evaluation and ride the carry."""
+        Gauss-Newton step. Fused: the Jacobian information arrived with the
+        accepted trial evaluation and rides the carry."""
+        G = b = op = None
+        fcur = c["fcur"] if carry_fcur else None
         if fused_gram:
             G, b = c["gram"], c["grhs"]
-            fcur = None if ssr_carry else c["fcur"]
-            J = None
+            raw_dtd = torch.diagonal(G, dim1=-2, dim2=-1)
         else:
-            G = b = None
-            fcur, J = res_jac_fn(x)
-        dtd = torch.clamp(
-            torch.diagonal(G, dim1=-2, dim2=-1) if fused_gram else colsumabs2(J),
-            config.MIN_DIAGONAL, config.MAX_DIAGONAL,
-        )
-        g = b if fused_gram else _jrmatvec(J, fcur)
+            if fused_flat:
+                op = operators.from_matrix(c["jstate"])
+            elif not materialize:
+                op = operators.for_problem(problem, x)
+            elif carry_fcur:
+                op = operators.from_matrix(jac_fn(x))
+            else:
+                fcur, J = res_jac_fn(x)
+                op = operators.from_matrix(J)
+            raw_dtd = op.colnorms2()
+            if not materialize:
+                # One probe set serves the block and the Gauss-Newton
+                # solve's Jacobi preconditioner.
+                op = dataclasses.replace(op, colnorms2=lambda: raw_dtd)
+        dtd = torch.clamp(raw_dtd, config.MIN_DIAGONAL, config.MAX_DIAGONAL)
+        g = b if fused_gram else op.rmatvec(fcur)
         dgr = g / dtd  # steepest descent in the D-metric (reference :105)
         wnorm_dgr = wnorm(dgr, dtd)
         if fused_gram:
             jdgr_sq = torch.sum(dgr * _gmatvec(G, dgr), dim=-1)
             dgn = solve_spd_system(G, b)
-            ls_iter = 1
+            ls_iter, istop_gn = 1, ISTOP_DIRECT
         else:
-            jdgr_sq = sumabs2(_jmatvec(J, dgr))
-            dgn, ls_iter, _ = solve_gn(J, fcur)
+            jdgr = op.matvec(dgr)
+            jdgr_sq = row_sum(jdgr * jdgr, reduce)
+            dgn, ls_iter, istop_gn = solve_gn(op, fcur)
         return dict(
-            G=G, b=b, fcur=fcur, J=J, dtd=dtd,
+            G=G, b=b, fcur=fcur, op=op, dtd=dtd, istop=istop_gn,
             maxabs_gr=maxabs_projected_gradient(g, x, lower, upper),
             dgr=dgr, wnorm_dgr=wnorm_dgr,
             alpha=wnorm_dgr**2 / jdgr_sq,  # Cauchy length (reference :109-111)
@@ -186,9 +209,9 @@ def loop_pieces(
         computes it (and carries it for the next iteration)."""
         it = c["it"] + 1
         x, ssr = c["x"], c["ssr"]
-        jstate = c["jstate"] if fused_gram else x
+        jstate = c["jstate"] if (fused_gram or fused_flat) else x
         blk = c["block"] if reuse else expensive(c, x)
-        G, b, fcur, J, dtd = blk["G"], blk["b"], blk["fcur"], blk["J"], blk["dtd"]
+        G, b, fcur, op, dtd = blk["G"], blk["b"], blk["fcur"], blk["op"], blk["dtd"]
         maxabs_gr, dgr, wnorm_dgr = blk["maxabs_gr"], blk["dgr"], blk["wnorm_dgr"]
         alpha, dgn, wnorm_dgn = blk["alpha"], blk["dgn"], blk["wnorm_dgn"]
         ls_iter = blk["ls_iter"]
@@ -234,7 +257,7 @@ def loop_pieces(
                 if fused_gram:
                     # J'(f - J dx_a) = b - G dx_a
                     return solve_spd_system(G, b - _gmatvec(G, dx_a), damp2), 1
-                dgn2, it2, _ = solve_damped(J, fcur - _jmatvec(J, dx_a), damp2)
+                dgn2, it2, _ = solve_damped(op, fcur - op.matvec(dx_a), damp2)
                 return dgn2, it2
 
             def combine(dx_a, free):
@@ -259,6 +282,8 @@ def loop_pieces(
         x_trial = x - dx
         if fused_gram:
             ftrial, gtrial, btrial = res_gram_fn(x_trial)
+        elif fused_flat:
+            ftrial, jtrial = res_jac_fn(x_trial)
         else:
             ftrial = residual_fn(x_trial)
         f_calls = c["f_calls"] + 1
@@ -266,17 +291,17 @@ def loop_pieces(
             trial_ssr, trial_lo = sumabs2_dd(ftrial)
             ared = dd_diff(ssr, c["ssr_lo"], trial_ssr, trial_lo)
         else:
-            trial_ssr = sumabs2(ftrial)
-            ared = torch.sum((fcur - ftrial) * (fcur + ftrial), dim=-1)
+            trial_ssr = row_sum(ftrial * ftrial, reduce)
+            ared = row_sum((fcur - ftrial) * (fcur + ftrial), reduce)
         if fused_gram:
             predicted_reduction = torch.abs(
                 2.0 * torch.sum(dx * b, dim=-1)
                 - torch.sum(dx * _gmatvec(G, dx), dim=-1)
             )
         else:
-            jdx = _jmatvec(J, dx)
+            jdx = op.matvec(dx)
             predicted_reduction = torch.abs(
-                torch.sum(jdx * (2.0 * fcur - jdx), dim=-1)
+                row_sum(jdx * (2.0 * fcur - jdx), reduce)
             )
         mul_calls = mul_calls + 1
         rho = torch.where(
@@ -305,12 +330,18 @@ def loop_pieces(
         # so the loop halts on it.
         step_finite = torch.isfinite(dx).all(dim=-1)
         acc = accepted.unsqueeze(-1)
+        if fused_gram:
+            new_jstate = torch.where(acc, x_trial, jstate)
+        elif fused_flat:
+            new_jstate = torch.where(acc.unsqueeze(-1), jtrial, jstate)
+        else:
+            new_jstate = jstate
         new = dict(
             x=torch.where(acc | ~step_finite.unsqueeze(-1), x_trial, x),
             ssr=torch.where(accepted, trial_ssr, ssr),
             delta=delta,
             reuse=~accepted,
-            jstate=torch.where(acc, x_trial, jstate) if fused_gram else jstate,
+            jstate=new_jstate,
             maxabs_gr=maxabs_gr,
             it=it,
             x_converged=flags.x_converged,
@@ -320,9 +351,9 @@ def loop_pieces(
             f_calls=f_calls,
             g_calls=g_calls,
             mul_calls=mul_calls,
-            inner_istop=c["inner_istop"],
+            inner_istop=istop_leaf(c["inner_istop"], blk["istop"]),
         )
-        if fused_gram and not ssr_carry:
+        if carry_fcur:
             new["fcur"] = torch.where(acc, ftrial, fcur)
         if ssr_carry:
             new["ssr_lo"] = torch.where(accepted, trial_lo, c["ssr_lo"])
@@ -352,8 +383,14 @@ def loop_pieces(
             maxabs_gr=out["maxabs_gr"],
             trace=out["trace"],
             status=status,
-            # J at the linearization point (recomputed: never carried).
-            jacobian=jac_fn(out["jstate"]),
+            # J at the linearization point: recomputed (never carried)
+            # except under the fused schedule that carries it; None when
+            # the problem never forms it.
+            jacobian=(
+                None if not materialize
+                else out["jstate"] if fused_flat
+                else jac_fn(out["jstate"])
+            ),
         )
 
     return carry, cond_fn, body_fn, finalize

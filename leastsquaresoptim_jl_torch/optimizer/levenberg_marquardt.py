@@ -17,31 +17,50 @@ unchanged, so recomputing J(x) gives the reused values. Work counters keep
 the reference accounting (g_calls counts fresh linearization points only).
 
 Schedules (optimizer/common.EvalSchedule): unfused (re-linearize at x,
-evaluate the residual at the trial point) and the fused-Gram schedules
-``fused=True`` / ``fused="ssr"`` (one evaluation per iteration, at the
-trial point, carrying G = J'J and b = J'r; "ssr" also carries the SSR as
-a dd pair instead of the residual). Box bounds clip the step and refine
-it on the active set (common.active_set_refinement). Geodesic acceleration
-is a later slice.
+evaluate the residual at the trial point) and the fused schedules (one
+evaluation per iteration, at the trial point): ``fused=True`` /
+``fused="ssr"`` with Cholesky carry G = J'J and b = J'r ("ssr" also carries
+the SSR as a dd pair instead of the residual); ``fused=True`` with another
+solver carries J. Box bounds clip the step and refine it on the active set
+(common.active_set_refinement).
+
+The inner solve sees the Jacobian as an operator (ops/operators.py). A
+matrix-free problem (``materialize_jacobian=False``, one fit only) never
+forms J: the operator is built at each fresh linearization point and rides
+the carry across rejected steps, together with the raw damping diagonal
+``dtd_raw``; a fresh linearization refreshes that diagonal through the
+operator's ``colnorms2_update`` (a few Hutchinson probes folded into the
+carried estimate) and hands it to the operator, so that the Jacobi
+preconditioner does not probe again. Every sum over residual rows goes
+through ``ops/linalg.row_sum`` with the problem's ``row_reduce``, which a
+row-sharded problem sets to an all-reduce.
+
+Geodesic acceleration (``geodesic=True``; Transtrum & Sethna 2012): the
+step gets half the second-order correction ``acc``, which solves the same
+damped system with f''[dx, dx] as right side (forward over forward JVP),
+kept only while ``||acc|| <= GEODESIC_ALPHA ||dx||``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from .. import config
+from ..ops import operators
 from ..ops.linalg import (
     clip_step_to_bounds,
-    colsumabs2,
     dd_diff,
     maxabs_projected_gradient,
+    row_sum,
     sumabs2,
     sumabs2_dd,
 )
+from ..ops.special import higher_order_derivatives
 from ..problem import LeastSquaresProblem
-from ..solver import solver_fns
+from ..solver import ISTOP_DIRECT, solver_fns
 from ..solver.cholesky import solve_spd_system
 from .common import (
     STATUS_NOT_FINITE,
@@ -51,14 +70,11 @@ from .common import (
     assess_convergence,
     build_eval_schedule,
     init_trace,
+    require_single_fit_if_matrix_free,
     resolve_tolerances,
     seed_eval,
     update_trace,
 )
-
-
-# Parameter count up to which J v is a broadcast multiply + reduce.
-_BROADCAST_MATVEC_MAX_N = 16
 
 
 def _gmatvec(G, v):
@@ -66,19 +82,10 @@ def _gmatvec(G, v):
     return torch.sum(G * v.unsqueeze(-2), dim=-1)
 
 
-def _jmatvec(J, v):
-    """J v for J (..., m, n), v (..., n): broadcast form for small n, a
-    matmul above (the JAX package's ``operators.from_matrix`` split)."""
-    if J.shape[-1] <= _BROADCAST_MATVEC_MAX_N:
-        return torch.sum(J * v.unsqueeze(-2), dim=-1)
-    return (J @ v.unsqueeze(-1)).squeeze(-1)
-
-
-def _jrmatvec(J, u):
-    """J'u for J (..., m, n), u (..., m), split as ``_jmatvec``."""
-    if J.shape[-1] <= _BROADCAST_MATVEC_MAX_N:
-        return torch.sum(J * u.unsqueeze(-1), dim=-2)
-    return (J.mT @ u.unsqueeze(-1)).squeeze(-1)
+def istop_leaf(carried, istop):
+    """The carry leaf for an inner solve's stop reason (a host int). A
+    direct solver's is the constant the carry starts with."""
+    return carried if istop == ISTOP_DIRECT else torch.full_like(carried, istop)
 
 
 def loop_pieces(
@@ -95,19 +102,19 @@ def loop_pieces(
 
     ``x0`` (default ``problem.x0``) has shape (..., n); every carry leaf
     and result leaf leads with its batch shape ``...``."""
-    if geodesic:
-        raise NotImplementedError(
-            "geodesic acceleration is not ported yet"
-        )
     residual_fn = problem.residual_fn
     jac_fn = problem.jac_fn
+    materialize = problem.materialize_jacobian
+    reduce = problem.row_reduce
     _, solve_damped = solver_fns(solver_tag)
 
     sched = build_eval_schedule(problem, solver_tag, fused)
     res_jac_fn, res_gram_fn = sched.res_jac_fn, sched.res_gram_fn
-    fused_gram, ssr_carry = sched.fused_gram, sched.ssr_carry
+    fused_gram, fused_flat = sched.fused_gram, sched.fused_flat
+    carry_fcur, ssr_carry = sched.carry_fcur, sched.ssr_carry
 
     x = problem.x0 if x0 is None else x0
+    require_single_fit_if_matrix_free(problem, x)
     dt = x.dtype
     batch_shape = tuple(x.shape[:-1])
     x_tol, f_tol, g_tol = resolve_tolerances(opts, dt)
@@ -120,7 +127,7 @@ def loop_pieces(
     if ssr_carry:
         ssr, ssr_lo0 = sumabs2_dd(fcur)
     else:
-        ssr = sumabs2(fcur)
+        ssr = row_sum(fcur * fcur, reduce)
     false = full(False, torch.bool)
 
     trace = init_trace(opts, x)
@@ -144,16 +151,21 @@ def loop_pieces(
         f_calls=full(1, torch.int32),
         g_calls=full(0, torch.int32),
         mul_calls=full(0, torch.int32),
-        inner_istop=full(-1, torch.int32),
+        inner_istop=full(ISTOP_DIRECT, torch.int32),
         trace=trace,
     )
-    if fused_gram and not ssr_carry:
+    if carry_fcur:
         carry["fcur"] = fcur
     if ssr_carry:
         carry["ssr_lo"] = ssr_lo0
     if fused_gram:
         carry["gram"] = gram0
         carry["grhs"] = grhs0
+    if not materialize:
+        # The raw damping diagonal rides the carry so that rejected steps
+        # reuse it (a fresh one costs 32 Hutchinson rmatvec probes); all
+        # zeros marks "no estimate yet".
+        carry["dtd_raw"] = torch.zeros_like(x)
 
     def cond_fn(c):
         # Non-finite iterates halt the loop (reference: the check_isfinite
@@ -166,29 +178,55 @@ def loop_pieces(
 
     def body_fn(c, reuse=None):
         """One iteration. ``reuse`` is the carry's ``~need_jacobian`` read
-        on the host (True: take (f, J) from the carry; False: evaluate and
-        carry them), or None to evaluate unconditionally."""
+        on the host (True: take the linearization from the carry; False:
+        evaluate and carry it), or None to evaluate unconditionally."""
         it = c["it"] + 1
         x, ssr = c["x"], c["ssr"]
         delta = c["delta"]
+        fcur = c["fcur"] if carry_fcur else None
 
-        # Linearization (reference :77-81). Fused: (G, b) arrived with the
-        # accepted trial evaluation and ride the carry.
+        # Linearization (reference :77-81). Fused: the Jacobian information
+        # arrived with the accepted trial evaluation and rides the carry.
+        op = None
         if fused_gram:
             G, b = c["gram"], c["grhs"]
             jstate = c["jstate"]
-            fcur = None if ssr_carry else c["fcur"]
-            J = None
-        else:
-            fcur, J = c["linearization"] if reuse else res_jac_fn(x)
+        elif fused_flat:
+            jstate = c["jstate"]
+            op = operators.from_matrix(jstate)
+        elif reuse:
+            fcur, op = c["linearization"]
+            jstate = c["jstate"]
+        elif not materialize:
             jstate = x
+            op = operators.for_problem(problem, x)
+        elif carry_fcur:
+            jstate = x
+            op = operators.from_matrix(jac_fn(x))
+        else:
+            jstate = x
+            fcur, J = res_jac_fn(x)
+            op = operators.from_matrix(J)
         g_calls = c["g_calls"] + c["need_jacobian"].to(torch.int32)
 
-        # Scale-invariant damping diagonal (reference :82-86).
+        # Scale-invariant damping diagonal (reference :82-86). Matrix-free:
+        # fresh only at a fresh linearization point, and handed to the
+        # operator so that the Jacobi preconditioner reuses it.
         if fused_gram:
             dtd = torch.diagonal(G, dim1=-2, dim2=-1)
+        elif materialize:
+            dtd = op.colnorms2()
         else:
-            dtd = colsumabs2(J)
+            if reuse:
+                dtd_raw = c["dtd_raw"]
+            else:
+                dtd_raw = (
+                    op.colnorms2_update(c["dtd_raw"])
+                    if op.colnorms2_update is not None
+                    else op.colnorms2()
+                )
+                op = dataclasses.replace(op, colnorms2=lambda: dtd_raw)
+            dtd = dtd_raw
         dtd_mean = torch.mean(dtd, dim=-1, keepdim=True)
         dtd = torch.minimum(
             torch.maximum(dtd, config.MIN_DIAGONAL * dtd_mean),
@@ -200,10 +238,33 @@ def loop_pieces(
         # (Cholesky is a direct solver: inner_istop stays ISTOP_DIRECT.)
         if fused_gram:
             dx = solve_spd_system(G, b, damp)
-            lmiter = 1
+            lmiter, inner_istop = 1, ISTOP_DIRECT
         else:
-            dx, lmiter, _ = solve_damped(J, fcur, damp)
+            dx, lmiter, inner_istop = solve_damped(op, fcur, damp)
         mul_calls = c["mul_calls"] + lmiter
+
+        if geodesic:
+            # f''[dx, dx] by forward over forward JVP, then the SAME damped
+            # system with it as right side. With x_trial = x - dx the
+            # velocity is v = -dx; f''[v, v] = f''[dx, dx] and the update
+            # x + v + a/2 becomes x - (dx + acc/2). A non-finite dx gives a
+            # NaN acc, the guard is then False, and the plain step stays.
+            def _jv(z):
+                return torch.func.jvp(residual_fn, (z,), (dx,))[1]
+
+            with higher_order_derivatives():
+                fvv = torch.func.jvp(_jv, (x,), (dx,))[1]
+            if fused_gram:
+                # No operator in Gram space: J'fvv by one VJP, then the
+                # carried (G, damp) system.
+                _, vjp_fn = torch.func.vjp(residual_fn, x)
+                acc = solve_spd_system(G, vjp_fn(fvv)[0], damp)
+                acc_iters = 2  # one J' apply + one solve
+            else:
+                acc, acc_iters, _ = solve_damped(op, fvv, damp)
+            use_acc = sumabs2(acc) <= config.GEODESIC_ALPHA**2 * sumabs2(dx)
+            dx = torch.where(use_acc.unsqueeze(-1), dx + 0.5 * acc, dx)
+            mul_calls = mul_calls + acc_iters
 
         # Box clip (reference :89-98) with the active-set refinement; LM
         # keeps its own damping on the free coordinates.
@@ -212,7 +273,7 @@ def loop_pieces(
                 if fused_gram:
                     # J'(f - J dx_a) = b - G dx_a
                     return solve_spd_system(G, b - _gmatvec(G, dx_a), damp2), 1
-                dx2, it2, _ = solve_damped(J, fcur - _jmatvec(J, dx_a), damp2)
+                dx2, it2, _ = solve_damped(op, fcur - op.matvec(dx_a), damp2)
                 return dx2, it2
 
             dx, lmiter2 = active_set_refinement(
@@ -223,7 +284,7 @@ def loop_pieces(
 
         # Gradient J'f at the pre-update x (reference :100-104); in Gram
         # space it IS the carried rhs b.
-        g = b if fused_gram else _jrmatvec(J, fcur)
+        g = b if fused_gram else op.rmatvec(fcur)
         mul_calls = mul_calls + 1
         maxabs_gr = maxabs_projected_gradient(g, x, lower, upper)
 
@@ -232,24 +293,27 @@ def loop_pieces(
         x_trial = x - dx
         if fused_gram:
             ftrial, gtrial, btrial = res_gram_fn(x_trial)
+        elif fused_flat:
+            ftrial, jtrial = res_jac_fn(x_trial)
         else:
             ftrial = residual_fn(x_trial)
-        f_calls = c["f_calls"] + 1
+        # Geodesic charges the two nested-JVP model evaluations of f''vv.
+        f_calls = c["f_calls"] + (3 if geodesic else 1)
         if ssr_carry:
             trial_ssr, trial_lo = sumabs2_dd(ftrial)
             ared = dd_diff(ssr, c["ssr_lo"], trial_ssr, trial_lo)
         else:
-            trial_ssr = sumabs2(ftrial)
-            ared = torch.sum((fcur - ftrial) * (fcur + ftrial), dim=-1)
+            trial_ssr = row_sum(ftrial * ftrial, reduce)
+            ared = row_sum((fcur - ftrial) * (fcur + ftrial), reduce)
         if fused_gram:
             predicted_reduction = torch.abs(
                 2.0 * torch.sum(dx * b, dim=-1)
                 - torch.sum(dx * _gmatvec(G, dx), dim=-1)
             )
         else:
-            jdx = _jmatvec(J, dx)
+            jdx = op.matvec(dx)
             predicted_reduction = torch.abs(
-                torch.sum(jdx * (2.0 * fcur - jdx), dim=-1)
+                row_sum(jdx * (2.0 * fcur - jdx), reduce)
             )
         mul_calls = mul_calls + 1
         rho = torch.where(
@@ -277,6 +341,12 @@ def loop_pieces(
         # (levenberg_marquardt.jl:106,135), so the loop halts on it.
         step_finite = torch.isfinite(dx).all(dim=-1)
         acc = accepted.unsqueeze(-1)
+        if fused_gram:
+            new_jstate = torch.where(acc, x_trial, jstate)
+        elif fused_flat:
+            new_jstate = torch.where(acc.unsqueeze(-1), jtrial, jstate)
+        else:
+            new_jstate = jstate
         new = dict(
             x=torch.where(acc | ~step_finite.unsqueeze(-1), x_trial, x),
             ssr=torch.where(accepted, trial_ssr, ssr),
@@ -286,7 +356,7 @@ def loop_pieces(
                 c["decrease_factor"] * 2.0,
             ),
             need_jacobian=accepted,
-            jstate=torch.where(acc, x_trial, jstate) if fused_gram else jstate,
+            jstate=new_jstate,
             maxabs_gr=maxabs_gr,
             it=it,
             x_converged=flags.x_converged,
@@ -296,17 +366,19 @@ def loop_pieces(
             f_calls=f_calls,
             g_calls=g_calls,
             mul_calls=mul_calls,
-            inner_istop=c["inner_istop"],
+            inner_istop=istop_leaf(c["inner_istop"], inner_istop),
         )
-        if fused_gram and not ssr_carry:
+        if carry_fcur:
             new["fcur"] = torch.where(acc, ftrial, fcur)
         if ssr_carry:
             new["ssr_lo"] = torch.where(accepted, trial_lo, c["ssr_lo"])
         if fused_gram:
             new["gram"] = torch.where(acc.unsqueeze(-1), gtrial, G)
             new["grhs"] = torch.where(acc, btrial, b)
-        elif reuse is not None:
-            new["linearization"] = (fcur, J)
+        elif reuse is not None and not fused_flat:
+            new["linearization"] = (fcur, op)
+        if not materialize:
+            new["dtd_raw"] = dtd_raw
         new["trace"] = update_trace(c["trace"], opts, it, new["ssr"], maxabs_gr)
         return new
 
@@ -329,8 +401,14 @@ def loop_pieces(
             maxabs_gr=out["maxabs_gr"],
             trace=out["trace"],
             status=status,
-            # J at the linearization point (recomputed: never carried).
-            jacobian=jac_fn(out["jstate"]),
+            # J at the linearization point: recomputed (never carried)
+            # except under the fused schedule that carries it; None when
+            # the problem never forms it.
+            jacobian=(
+                None if not materialize
+                else out["jstate"] if fused_flat
+                else jac_fn(out["jstate"])
+            ),
         )
 
     return carry, cond_fn, body_fn, finalize

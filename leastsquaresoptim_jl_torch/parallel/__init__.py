@@ -1,14 +1,22 @@
-"""Multi-process scale-out: the row-sharded Gram reduction.
+"""Multi-process scale-out: row-sharded solves and the row-sharded Gram.
 
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/parallel``. Residual rows
-shard across processes (one per card) in contiguous blocks; each process
-forms its local J_i'J_i and J_i'r_i and one ``torch.distributed``
-all-reduce sums them (NCCL on CUDA, gloo on the CPU). The matrix-free
-pieces (``solve_sharded``, ``sharded_problem``, ``make_sharded_operator``)
-sit on the LSMR path and are not ported yet.
+shard across processes (one per card) in contiguous blocks, joined by
+``torch.distributed`` (NCCL on CUDA, gloo on the CPU): ``solve_sharded``
+runs the matrix-free solve with ``J v`` local and every sum over rows
+all-reduced; ``sharded_gram_and_rhs`` forms each process's J_i'J_i and
+J_i'r_i and sums them with one all-reduce each.
 """
 
 from .mesh import initialize_multihost, shard_rows
-from .sharded import sharded_gram_and_rhs
+from .sharded import (
+    make_sharded_operator,
+    sharded_gram_and_rhs,
+    sharded_problem,
+    solve_sharded,
+)
 
-__all__ = ["initialize_multihost", "shard_rows", "sharded_gram_and_rhs"]
+__all__ = [
+    "initialize_multihost", "shard_rows", "sharded_gram_and_rhs",
+    "make_sharded_operator", "sharded_problem", "solve_sharded",
+]

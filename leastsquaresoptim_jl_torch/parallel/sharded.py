@@ -1,18 +1,128 @@
-"""Residual-row-sharded normal system.
+"""Residual-row-sharded solves: distributed Gram reduction + distributed LSMR.
 
-PyTorch counterpart of ``sharded_gram_and_rhs`` in
-``leastsquaresoptim_jl_tpu/parallel/sharded.py``: each process forms the
-Gram products of its local rows (optionally with the Gram kernel) and one
-all-reduce per product gives every process the full (n, n) normal system.
+PyTorch counterpart of ``leastsquaresoptim_jl_tpu/parallel/sharded.py``.
+Every process holds a contiguous block of the residual rows (``shard_rows``)
+and one card; ``torch.distributed`` joins them (NCCL on CUDA, gloo on the
+CPU). The parameter vector x, the damping diagonal and every n-vector stay
+replicated: each process computes the same values from the same all-reduced
+sums.
+
+1. **The sharded solve** (``solve_sharded``, ``sharded_problem``): the
+   problem is built from a *per-row* residual ``f(x, row) -> scalar`` over
+   this process's rows and runs the standard solve loop. The JAX package
+   leaves the row reductions to XLA's SPMD partitioner; PyTorch has none,
+   so the problem carries ``row_reduce`` (an all-reduce) and every sum over
+   rows in the loops goes through ``ops/linalg.row_sum``: the ssr, the
+   actual and predicted reductions, J'u, the column norms and LSMR's
+   range-space norms.
+
+2. **Explicit pieces** (``sharded_gram_and_rhs``, ``make_sharded_operator``):
+   each process forms the Gram products of its local rows (optionally with
+   the Gram kernel) and one all-reduce per product gives every process the
+   full (n, n) normal system; LSMR matvecs run ``J v`` local and ``J'u``
+   all-reduced, one all-reduce per matvec pair beside the norm's.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
+import torch
 import torch.distributed as dist
 
+from .._device import data_device
 from ..ops.gram import gram_and_rhs
+from ..ops.operators import JacobianOperator
+from ..problem import LeastSquaresProblem
+
+
+def _all_reduce_sum(group=None) -> Callable:
+    """``reduce(t)``: the sum of ``t`` over the processes of ``group``, as
+    a new tensor (the argument may alias a caller's vector)."""
+
+    def reduce(t):
+        t = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+
+    return reduce
+
+
+def _global_rows(m_local: int, device, reduce) -> int:
+    return int(reduce(torch.tensor(m_local, dtype=torch.int64, device=device)))
+
+
+def sharded_problem(
+    per_row_residual: Callable,
+    data_local,
+    x0,
+    group=None,
+    weights=None,
+    device=None,
+) -> LeastSquaresProblem:
+    """Build a LeastSquaresProblem whose residual is row-sharded.
+
+    ``per_row_residual(x, row) -> scalar``; ``data_local`` is a tensor, or
+    a tuple, list or dict of tensors, whose leading dimension is this
+    process's rows (``shard_rows`` of the whole data). ``weights``
+    (optional, this process's rows) scales rows; use 0.0 to mask padding
+    rows. ``x0`` is the same on every process.
+
+    The residual function vmaps over the local rows. The problem is
+    matrix-free: ``m`` is the global row count and ``row_reduce`` sums over
+    the processes of ``group`` (default: the default group).
+    """
+    leaves = (
+        list(data_local.values()) if isinstance(data_local, dict)
+        else list(data_local) if isinstance(data_local, (tuple, list))
+        else [data_local]
+    )
+    x0 = torch.as_tensor(x0, device=data_device(leaves[0], device))
+    reduce = _all_reduce_sum(group)
+
+    def residual_fn(x):
+        r = torch.func.vmap(lambda row: per_row_residual(x, row))(data_local)
+        return r if weights is None else r * weights
+
+    return LeastSquaresProblem(
+        residual_fn=residual_fn,
+        x0=x0,
+        m=_global_rows(int(leaves[0].shape[0]), x0.device, reduce),
+        jac_fn=None,
+        materialize_jacobian=False,
+        row_reduce=reduce,
+        probe_salt=dist.get_rank(group),
+    )
+
+
+def solve_sharded(
+    per_row_residual: Callable,
+    data_local,
+    x0,
+    optimizer=None,
+    *,
+    group=None,
+    weights=None,
+    options=None,
+    lower=None,
+    upper=None,
+    device=None,
+):
+    """Distributed solve over row-sharded data; every process calls it with
+    its own rows and gets the same raw result dict.
+
+    Matrix-free by construction (the (m, n) Jacobian is never formed); the
+    default ``LevenbergMarquardt(LSMR())`` uses distributed matvecs. For
+    small n a materialized row-sharded J with ``sharded_gram_and_rhs`` is
+    the normal-equations alternative.
+    """
+    from ..api import solve
+
+    problem = sharded_problem(
+        per_row_residual, data_local, x0, group=group, weights=weights,
+        device=device,
+    )
+    return solve(problem, optimizer, options=options, lower=lower, upper=upper)
 
 
 def sharded_gram_and_rhs(J_local, y_local, group=None,
@@ -25,3 +135,26 @@ def sharded_gram_and_rhs(J_local, y_local, group=None,
     dist.all_reduce(gram, op=dist.ReduceOp.SUM, group=group)
     dist.all_reduce(rhs, op=dist.ReduceOp.SUM, group=group)
     return gram, rhs
+
+
+def make_sharded_operator(J_local, group=None) -> JacobianOperator:
+    """Distributed LSMR operator from this process's rows of a materialized
+    J, ``J_local`` (m_i, n).
+
+    matvec:  J v   local rows only, the output stays row-sharded (no
+             communication).
+    rmatvec: J' u  local partial + one all-reduce (replicated (n,)).
+    The operator carries ``reduce``, with which the LSMR solvers complete
+    the norms of the row-sharded range-space vectors.
+    """
+    reduce = _all_reduce_sum(group)
+    m_local, n = J_local.shape
+    return JacobianOperator(
+        matvec=lambda v: J_local @ v,
+        rmatvec=lambda u: reduce(J_local.mT @ u),
+        colnorms2=lambda: reduce(torch.sum(J_local * J_local, dim=0)),
+        m=_global_rows(int(m_local), J_local.device, reduce),
+        n=int(n),
+        J=None,
+        reduce=reduce,
+    )

@@ -1,15 +1,16 @@
 """Solver tags and default-selection rules.
 
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/solver/base.py``
-(reference: src/types.jl:78-127). The tags carry no tensors. ``QR`` and
-``Cholesky`` are implemented; ``LSMR`` exists so the reference's default
-rules can be stated, and raises ``NotImplementedError`` when a solve would
+(reference: src/types.jl:78-127). The tags carry no tensors. ``QR``,
+``Cholesky`` and ``LSMR`` are implemented; ``BlockCholesky`` exists so that
+a caller can name it, and raises ``NotImplementedError`` when a solve would
 use it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 
 class AbstractSolver:
@@ -42,9 +43,46 @@ class Cholesky(AbstractSolver):
 
 
 @dataclasses.dataclass(frozen=True)
+class BlockCholesky(AbstractSolver):
+    """Block-tridiagonal normal-equations solver tag (the JAX package's
+    ``ops/block_tridiag.py``). Not implemented in this package yet."""
+
+    block_size: int = 1
+    method: str = "auto"
+
+    def __post_init__(self):
+        if self.block_size < 1:
+            raise ValueError(
+                f"block_size must be >= 1, got {self.block_size}"
+            )
+        if self.method not in ("auto", "scan", "cr"):
+            raise ValueError(
+                f"method must be 'auto', 'scan' or 'cr', got {self.method!r}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class LSMR(AbstractSolver):
     """Matrix-free LSMR solver tag (reference: src/solver/iterative_lsmr.jl).
-    Not implemented in this package yet."""
+
+    ``preconditioner``: optional callable ``(op, damp) -> p`` (the current
+    linear operator and the damping vector, or ``None`` on the undamped
+    Gauss-Newton path) returning the *diagonal* of a right preconditioner
+    P^{-1}; the solver iterates on A P^{-1} (reference:
+    iterative_lsmr.jl:12-51). Defaults to the Jacobi preconditioner
+    1/sqrt(colsumabs2(J) + damp) (reference: iterative_lsmr.jl:129-141).
+    ``maxiter``: optional cap on inner iterations (default max(m, n);
+    m + n for the damped system).
+    ``conlim``: condition-number limit that triggers istop = 3 (default
+    1e8). The inner stop reason reaches the result as ``inner_istop``.
+    """
+
+    preconditioner: Optional[Callable] = None
+    maxiter: Optional[int] = None
+    conlim: Optional[float] = None
+
+    def __hash__(self):
+        return hash((LSMR, self.preconditioner, self.maxiter, self.conlim))
 
 
 def default_solver(solver, problem) -> AbstractSolver:

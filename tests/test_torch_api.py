@@ -149,5 +149,12 @@ def test_contract_errors():
         lt.QR(rank_policy="pivot")
     with pytest.raises(NotImplementedError, match="robust losses"):
         lt.optimize(rosenbrock_t, torch.zeros(2), loss="huber")
-    with pytest.raises(NotImplementedError, match="LSMR"):
-        lt.optimize(rosenbrock_t, torch.zeros(2), lt.LevenbergMarquardt(lt.LSMR()))
+    with pytest.raises(NotImplementedError, match="BlockCholesky"):
+        lt.optimize(rosenbrock_t, torch.zeros(2),
+                    lt.LevenbergMarquardt(lt.BlockCholesky()))
+    with pytest.raises(ValueError, match="block_size"):
+        lt.BlockCholesky(block_size=0)
+    # LSMR is ported: it runs and reports its inner stop.
+    r = lt.optimize(rosenbrock_t, torch.zeros(2, dtype=torch.float64),
+                    lt.LevenbergMarquardt(lt.LSMR()))
+    assert r.converged and r.inner_istop >= 1

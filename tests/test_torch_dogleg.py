@@ -87,9 +87,23 @@ def test_fused_follows_unfused(optimizer, bounded, fused):
 
 
 def test_qr_fused_schedule_is_a_later_slice():
+    """It was a later slice once: QR's fused schedule (J carried from the
+    accepted trial evaluation) now runs, bounded too, and follows the
+    unfused loop and the JAX package."""
     p = lt.least_squares_problem(config3_t, torch.tensor(X0))
-    with pytest.raises(NotImplementedError, match="flat-J"):
-        lt.solve(p, lt.Dogleg(lt.QR()), fused=True)
+    pj = lso.least_squares_problem(f=config3_j, x=jnp.asarray(X0))
+    for optimizer, joptimizer in ((lt.Dogleg, lso.Dogleg),
+                                  (lt.LevenbergMarquardt, lso.LevenbergMarquardt)):
+        r0 = lt.solve(p, optimizer(lt.QR()), lower=torch.tensor(LOWER))
+        r1 = lt.solve(p, optimizer(lt.QR()), lower=torch.tensor(LOWER), fused=True)
+        rj = lso.solve(pj, joptimizer(lso.QR()), lower=jnp.asarray(LOWER), fused=True)
+        for k in FLAGS:
+            assert torch.equal(r0[k], r1[k]), k
+            assert int(r1[k]) == int(rj[k]), k
+        torch.testing.assert_close(r1["minimizer"], r0["minimizer"], rtol=0, atol=1e-12)
+        np.testing.assert_allclose(r1["minimizer"].numpy(), np.asarray(rj["minimizer"]),
+                                   rtol=0, atol=1e-8)
+        assert r1["jacobian"].shape == (p.m, p.n)
 
 
 def test_first_iteration_rescales_the_radius():
