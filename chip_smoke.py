@@ -1,7 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU: the batched curve-fit path,
-the Gram kernel and the row-sharded Gram, the single-fit dense path, and
-the matrix-free path (LSMR over Jacobian operators) at BASELINE.json config
-#4's size.
+the Gram kernel and the row-sharded Gram, the single-fit dense path, the
+matrix-free path (LSMR over Jacobian operators) at BASELINE.json config
+#4's size, and the reference's test problems (MINPACK, NIST StRD) with
+batched Dogleg, bounded batches and multistart.
 
     python3 chip_smoke.py
 
@@ -116,6 +117,50 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    the same data: both converged, equal LM iterations, matvecs within one
    LSMR iteration per LM iteration, minimizers within 1e-5; and the
    Gauss-Newton LSMR step of the unsharded operator within 1e-5.
+
+10. The reference's test problems and the batched breadth (BASELINE.json
+   configs #1, #2 and #5's batch). The solves of 10a-10c and 10d's single
+   fits are host-bound and independent, so they run in a pool of up to 8
+   worker processes (spawned, each with its own CUDA context on card 0;
+   10a-10c as one queue, longest first; every job's kernel counters must
+   read 0).
+   (a) The four MINPACK grids of tests/test_minpack.py in float64:
+   full_suite x {Dogleg, LM} x {QR, LSMR} materialized; full_suite x
+   {Dogleg(LSMR), LM(LSMR)} matrix-free; cholesky_suite x {Dogleg,
+   LM}(Cholesky), converged; full_suite x {Dogleg, LM} with central
+   differences, converged. Limit: every ssr <= 1e-3.
+   (b) The NIST StRD scoreboard of tests/test_nist.py in float64 (16
+   datasets x 2 certified starts through the x0 override, x_tol = 1e-50,
+   f_tol = 1e-36, g_tol = 1e-50): Dogleg(QR) >= 30 and LM(QR) >= 31 of 32
+   within 1e-3 of the certified solution, no NaN minimizer; LM(Cholesky),
+   config #2's solver, printed without a limit.
+   (c) MGH09 and MGH10 from 64 Latin-hypercube starts over [min(s0, s1)/4,
+   max(s0, s1)*4] through optimize_multistart (batched Dogleg(Cholesky())),
+   float64: the best row converged within 1e-3 of the certified solution.
+   (d) Batched Dogleg on phase 3's data (B = 131072, m = 64, float32):
+   curve_fit_batch(separable, gridded, fused="ssr", Dogleg(Cholesky()))
+   and solve_batch with no optimizer named on the two-parameter residual
+   (grid shared), both stopping at 99% done: >= 99% converged, median
+   relative error <= 1e-4, 0 launches of either kernel; times (best and
+   median of 3 after a warm-up, host clock ending in a sync) and one
+   profiler pass (kernels per lockstep iteration, device ms, busy share).
+   Then the first 512 fits in float64 as one batch against the same fits
+   solved one at a time by solve: equal iterations, counters and
+   converged, the criteria equal where the final ssr is above 1e-20,
+   minimizers within 1e-10.
+   (e) The same data with a lower bound on b1 at the 30th percentile of
+   the truth, curve_fit_batch(separable, gridded, fused="ssr") with
+   LM(Cholesky()) and Dogleg(Cholesky()): every minimizer feasible, >= 99%
+   converged, >= 99% of the fits whose true b1 is below the bound end at it
+   (1e-6 relative) and >= 99% of the rest within 1e-4 of the truth; times
+   and profiler pass as in (d).
+   (f) power and michaelis_menten (phase 2's basis_data at B = 131072, m =
+   64, float32) through curve_fit_batch(separable=True, LM(Cholesky()))
+   and varpro_lm_p1_kernel_solve: 0 kernel launches on the first, >= 1 on
+   the second, >= 99% converged on both, median relative alpha difference
+   <= 1e-5; both routes' times; one K = 8 launch of each basis against its
+   plain version (phase 2's float32 limits) with its time, bound and share
+   (phase 5's method).
 
 The second-to-last line is a JSON object describing each kernel (times
 from phase 5 for kernel_varpro, at the lanes the rule picks, and from
@@ -333,6 +378,7 @@ def main():
     gram_launches = phase_sharded_gram(dev)
     phase_single_fit(dev, smi)
     phase_matrix_free(dev, smi)
+    phase_reference_problems(dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "kernel_varpro",
@@ -467,7 +513,7 @@ def phase_varpro_parity(dev):
                                  solve_parity(ok_, or_), dt, lanes)
 
 
-def launch_ms(launch, x, Y, state0, tols, n=20, lanes=None):
+def launch_ms(launch, x, Y, state0, tols, n=20, lanes=None, basis="exp_saturation"):
     """Median of ``n`` single K-iteration launches from ``state0``, each
     between its own CUDA events."""
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
@@ -475,7 +521,7 @@ def launch_ms(launch, x, Y, state0, tols, n=20, lanes=None):
     for i in range(n):
         st = state0.clone()
         starts[i].record()
-        launch("exp_saturation", x, Y, st, K, tols, float(ITERATIONS), lanes=lanes)
+        launch(basis, x, Y, st, K, tols, float(ITERATIONS), lanes=lanes)
         ends[i].record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
@@ -613,12 +659,19 @@ HBM_BYTES_PER_MS = 3.35e9
 PEAK_FLOPS_PER_MS = {"tf32": 495e9, "bf16": 989e9, "fp32": 67e9}
 # Operations of one p = 1 VarPro LM iteration per sample, counted from
 # ops/kernel_varpro.py::_iteration_reference: two evaluations of the
-# model and its projection (a multiply, exp, subtract and multiply for
-# the basis; P.P, q = P / R, q.y, r = y - z q: 9 FLOPs, 1 exp, 1 division
-# each), then r.r, P.dP, dP.y, the Jacobian (3), J.J, J.r and the actual
-# reduction (4): 17 FLOPs. exp and division count one each; the per-fit
-# scalar work (about 50 operations per fit) is left out.
-VARPRO_OPS_PER_SAMPLE_ITERATION = 2 * (9 + 1 + 1) + 17
+# model and its projection (exp_saturation: a multiply, exp, subtract and
+# multiply for the basis; P.P, q = P / R, q.y, r = y - z q: 9 FLOPs, 1
+# exp, 1 division each), then r.r, P.dP, dP.y, the Jacobian (3), J.J, J.r
+# and the actual reduction (4): 17 FLOPs. exp and division count one each;
+# the per-fit scalar work (about 50 operations per fit) is left out. power
+# evaluates exp(a u) and phi u (2 FLOPs and an exp, log x is taken once per
+# launch); michaelis_menten 1 / (a + u), u inv and -(phi inv) (4 FLOPs and
+# a division).
+VARPRO_OPS_PER_SAMPLE_ITERATION = {
+    "exp_saturation": 2 * (9 + 1 + 1) + 17,
+    "power": 2 * (8 + 1 + 1) + 17,
+    "michaelis_menten": 2 * (10 + 2) + 17,
+}
 
 
 def bound_of(nbytes, flops, peak):
@@ -639,13 +692,14 @@ def gram_bound(m, n, dtype):
                     "bf16" if dtype == torch.bfloat16 else "tf32")
 
 
-def varpro_bound(B, m, fit_iterations, size):
+def varpro_bound(B, m, fit_iterations, size, basis="exp_saturation"):
     """kernel_varpro's bound for one float32 launch: Y and x read once,
     the (B, 8) state read and written once; the operations of the
     fit-iterations the launch ran, at the float32 rate outside the tensor
     cores (67 TFLOP/s)."""
     nbytes = (B * m + m + 2 * B * 8) * size
-    return bound_of(nbytes, fit_iterations * m * VARPRO_OPS_PER_SAMPLE_ITERATION, "fp32")
+    ops = fit_iterations * m * VARPRO_OPS_PER_SAMPLE_ITERATION[basis]
+    return bound_of(nbytes, ops, "fp32")
 
 
 def gram_times(J, y, smi, what):
@@ -1056,7 +1110,8 @@ def config4_problem(blocks, dev, exact_colnorms):
 def profile_solve(run, what, smi):
     """One torch.profiler pass over ``run()``: CUDA kernels, device ms,
     busy share (device ms over the wall time of the profiled call) and
-    device-to-host copies (each a host read)."""
+    device-to-host copies (each a host read). Returns the kernel count
+    (None when the profiler saw no device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1066,13 +1121,14 @@ def profile_solve(run, what, smi):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         print(f"  {what}: the profiler recorded no device events: not measured")
-        return
+        return None
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     dtoh = sum(1 for e in kernels if "Memcpy DtoH" in e.name)
     launches = sum(1 for e in kernels if "Memcpy" not in e.name and "Memset" not in e.name)
     print(f"  {what} (profiled solve, {secs * 1e3:.1f} ms with the profiler on): "
           f"{launches} CUDA kernels, {device_ms:.3f} ms of device time, busy share "
           f"{device_ms / (secs * 1e3):.4f}, {dtoh} device-to-host copies [{smi}]")
+    return launches
 
 
 def phase_config4(dev, smi):
@@ -1249,6 +1305,424 @@ def phase_matrix_free(dev, smi):
           f"gram {gram.launches}")
     check(kv.launches == 0 and gram.launches == 0,
           "config #4's path launches neither hand-written kernel (none lies on it)")
+
+
+# -- phase 10: the reference's test problems and the batched breadth ---------
+
+# Solver grids of tests/test_minpack.py: (suite, optimizers, problem keywords,
+# also require converged).
+MINPACK_GRIDS = {
+    "materialized": ("full_suite", [("Dogleg", "QR"), ("LevenbergMarquardt", "QR"),
+                                    ("Dogleg", "LSMR"), ("LevenbergMarquardt", "LSMR")],
+                     dict(use_jac=True), False),
+    "matrix-free": ("full_suite", [("Dogleg", "LSMR"), ("LevenbergMarquardt", "LSMR")],
+                    dict(materialize_jacobian=False), False),
+    "cholesky": ("cholesky_suite", [("Dogleg", "Cholesky"), ("LevenbergMarquardt", "Cholesky")],
+                 dict(use_jac=True), True),
+    "central": ("full_suite", [("Dogleg", None), ("LevenbergMarquardt", None)],
+                dict(autodiff="central"), True),
+}
+NIST_OPTIMIZERS = [("Dogleg", "QR"), ("LevenbergMarquardt", "QR"),
+                   ("LevenbergMarquardt", "Cholesky")]
+NIST_TOLS = dict(x_tol=1e-50, f_tol=1e-36, g_tol=1e-50)
+NIST_MIN_SCORE = {("Dogleg", "QR"): 30, ("LevenbergMarquardt", "QR"): 31}
+SINGLE_FITS = 512  # phase 10d's batch against one fit at a time
+
+
+def _optimizer(name, solver):
+    import leastsquaresoptim_jl_torch as lt
+
+    return getattr(lt, name)(None if solver is None else getattr(lt, solver)())
+
+
+_JOB_DEVICE = None  # set in each worker process by _worker_init
+
+
+def _worker_init(device):
+    global _JOB_DEVICE
+    _JOB_DEVICE = torch.device(device)
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def exp_saturation_residual(beta, data):
+    x, y = data
+    return y - beta[0] * (1.0 - torch.exp(-beta[1] * x))
+
+
+def reference_job(job):
+    """One job of phases 10a, 10b and 10d in a worker process (on the
+    pool's device): a MINPACK solve, a NIST run, or a range of fits solved
+    one at a time. Returns the job and what the checks read, with the
+    seconds and the kernels' launches in the worker."""
+    import leastsquaresoptim_jl_torch as lt
+    from leastsquaresoptim_jl_torch.models import minpack, nist
+    from leastsquaresoptim_jl_torch.ops import gram
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    dev = _JOB_DEVICE
+    t0 = time.perf_counter()
+    kind = job[0]
+    if kind == "minpack":
+        _, grid, opt, solver, name = job
+        suite, _, kw, _ = MINPACK_GRIDS[grid]
+        _, f, x0, jac = {p[0]: p for p in getattr(minpack, suite)(device=dev)}[name]
+        kw = dict(kw)
+        problem = lt.least_squares_problem(f, x0, g=jac if kw.pop("use_jac", False) else None,
+                                           **kw)
+        r = lt.optimize_problem(problem, _optimizer(opt, solver))
+        out = dict(ssr=r.ssr, converged=r.converged, iterations=r.iterations)
+    elif kind == "nist":
+        _, opt, solver, name, i = job
+        d = nist.DATASETS[name]
+        x = torch.tensor(d["x"], dtype=torch.float64, device=dev)
+        y = torch.tensor(d["y"], dtype=torch.float64, device=dev)
+        problem = lt.least_squares_problem(
+            lambda b: y - nist.MODELS[name](x, b),
+            torch.tensor(d["starts"][0], dtype=torch.float64, device=dev))
+        r = lt.optimize_problem(
+            problem, _optimizer(opt, solver),
+            x0=torch.tensor(d["starts"][i], dtype=torch.float64, device=dev), **NIST_TOLS)
+        out = dict(minimizer=r.minimizer.tolist(), ssr=r.ssr, iterations=r.iterations,
+                   g_calls=r.g_calls)
+    elif kind == "multistart":
+        _, name = job
+        d = nist.DATASETS[name]
+        x = torch.tensor(d["x"], dtype=torch.float64, device=dev)
+        y = torch.tensor(d["y"], dtype=torch.float64, device=dev)
+        s0, s1 = (np.asarray(s, np.float64) for s in d["starts"])
+        starts = lt.latin_hypercube_starts(0, 64, np.minimum(s0, s1) / 4.0,
+                                           np.maximum(s0, s1) * 4.0, device=dev)
+        best, raw = lt.optimize_multistart(
+            lambda b, data: data[1] - nist.MODELS[name](data[0], b), starts,
+            data=(x, y), output_length=len(d["y"]))
+        out = dict(converged=bool(best["converged"]),
+                   minimizer=best["minimizer"].tolist(),
+                   share=raw["converged"].double().mean().item(),
+                   lockstep=int(raw["iterations"].max()))
+    else:  # "single": fits lo..hi of phase 10d's float64 check
+        _, lo, hi = job
+        xdata, Y_np, x0_np, _ = bench_data(B_MAIN, seed=0)
+        x = torch.tensor(xdata, device=dev)
+        rows = []
+        for i in range(lo, hi):
+            yi = torch.tensor(Y_np[i], device=dev)
+            raw = lt.solve(lt.least_squares_problem(
+                lambda b, yi=yi: exp_saturation_residual(b, (x, yi)),
+                torch.tensor(x0_np[i], device=dev)), lt.Dogleg(lt.Cholesky()))
+            rows.append({k: (raw[k].tolist()) for k in SINGLE_KEYS})
+        out = dict(rows=rows)
+    out.update(seconds=time.perf_counter() - t0, launches=kv.launches + gram.launches)
+    return job, out
+
+
+SINGLE_KEYS = ("minimizer", "ssr", "iterations", "f_calls", "g_calls", "mul_calls",
+               "converged", "x_converged", "f_converged", "g_converged")
+
+
+def run_jobs(pool, jobs, what):
+    """``jobs`` through the pool, in order; (results by job, seconds).
+    Every job must report 0 kernel launches: no hand-written kernel lies
+    on these paths."""
+    t0 = time.perf_counter()
+    out = dict(pool.imap_unordered(reference_job, jobs))
+    secs = time.perf_counter() - t0
+    check(all(r["launches"] == 0 for r in out.values()),
+          f"{what}: no kernel launched in the workers")
+    return out, secs
+
+
+def reference_jobs():
+    """The jobs of phases 10a-10c, longest first (NIST and the multistart
+    solves run 1000 iterations each)."""
+    from leastsquaresoptim_jl_torch.models import minpack, nist
+
+    jobs = [("multistart", name) for name in ("MGH09", "MGH10")]
+    jobs += [("nist", o, s, name, i) for o, s in NIST_OPTIMIZERS[::-1]
+             for name in nist.DATASETS for i in (0, 1)]
+    for grid, (suite, optimizers, _, _) in MINPACK_GRIDS.items():
+        names = [p[0] for p in getattr(minpack, suite)(device="cpu")]
+        jobs += [("minpack", grid, o, s, n) for o, s in optimizers for n in names]
+    return jobs
+
+
+def phase_minpack(out, smi):
+    """Phase 10a: the four MINPACK grids of tests/test_minpack.py."""
+    print("== phase 10a: MINPACK grids (tests/test_minpack.py), float64")
+    for grid, (_, _, _, need_conv) in MINPACK_GRIDS.items():
+        runs = {j: r for j, r in out.items() if j[:2] == ("minpack", grid)}
+        misses = [(j[2], j[3], j[4], r["ssr"], r["converged"]) for j, r in runs.items()
+                  if not (r["ssr"] <= 1e-3) or (need_conv and not r["converged"])]
+        print(f"  {grid}: {len(runs)} solves, {sum(r['iterations'] for r in runs.values())} "
+              f"iterations, {len(misses)} misses {misses}, job seconds "
+              f"{sum(r['seconds'] for r in runs.values()):.2f} [{smi}]")
+        check(not misses, f"MINPACK {grid}: every ssr <= 1e-3"
+              + (" and converged" if need_conv else ""))
+
+
+def phase_nist(out, smi):
+    """Phase 10b: the NIST StRD scoreboard of tests/test_nist.py."""
+    from leastsquaresoptim_jl_torch.models import nist
+
+    print("== phase 10b: NIST StRD scoreboard (tests/test_nist.py), float64")
+    for o, s in NIST_OPTIMIZERS:
+        runs = {(j[3], j[4]): r for j, r in out.items() if j[:3] == ("nist", o, s)}
+        nan = [k for k, r in runs.items() if np.isnan(np.mean(r["minimizer"]))]
+        misses = sorted(k for k, r in runs.items() if np.linalg.norm(
+            np.asarray(r["minimizer"]) - np.asarray(nist.DATASETS[k[0]]["solution"])) > 1e-3)
+        score = len(runs) - len(misses)
+        print(f"  {o}({s}): {score}/{len(runs)} within 1e-3 of the certified solution, "
+              f"misses (dataset, start) {misses}, iterations "
+              f"{sum(r['iterations'] for r in runs.values())}, job seconds "
+              f"{sum(r['seconds'] for r in runs.values()):.2f} [{smi}]")
+        check(len(runs) == 32 and not nan, f"{o}({s}): 32 runs, no NaN minimizer")
+        if (o, s) in NIST_MIN_SCORE:
+            check(score >= NIST_MIN_SCORE[(o, s)],
+                  f"{o}({s}) scores >= {NIST_MIN_SCORE[(o, s)]} of 32")
+
+
+def phase_multistart(out, smi):
+    """Phase 10c: the MGH09 and MGH10 far-start escapes by multistart."""
+    from leastsquaresoptim_jl_torch.models import nist
+
+    print("== phase 10c: multistart escapes, 64 Latin-hypercube starts, float64")
+    for name in ("MGH09", "MGH10"):
+        r = out[("multistart", name)]
+        err = float(np.linalg.norm(np.asarray(r["minimizer"])
+                                   - np.asarray(nist.DATASETS[name]["solution"])))
+        print(f"  {name}: best row converged {r['converged']}, |x - certified| {err:.3e}, "
+              f"{r['share']:.4f} of the starts converged, lockstep iterations "
+              f"{r['lockstep']}, job seconds {r['seconds']:.3f} [{smi}]")
+        check(r["converged"] and err <= 1e-3,
+              f"{name}: the best start converged within 1e-3 of the certified solution")
+
+
+def time_batch(run, label, smi, B):
+    """Best and median of 3 host-clock runs ending in a sync, after a
+    warm-up; printed with fits/s."""
+    run()
+    ts = [sync_time(run)[0] for _ in range(3)]
+    best, med = min(ts), float(np.median(ts))
+    print(f"  {label}: best {best:.6f} s, median {med:.6f} s over 3; "
+          f"{B / best:.1f} fits/s (best) [{smi}]")
+    return best
+
+
+def profile_batch(run, raw, label, smi):
+    """One profiler pass; CUDA kernels per lockstep iteration."""
+    kernels = profile_solve(run, label, smi)
+    its = int(raw["iterations"].max())
+    if kernels is not None:
+        print(f"  {label}: {its} lockstep iterations, {kernels / max(its, 1):.1f} CUDA "
+              f"kernels per iteration [{smi}]")
+
+
+def phase_batched_dogleg(dev, pool, smi):
+    """Phase 10d: batched Dogleg at config #5's batch (phase 3's data)."""
+    import leastsquaresoptim_jl_torch as lt
+    from leastsquaresoptim_jl_torch.models import curve_fit_batch
+    from leastsquaresoptim_jl_torch.ops import gram
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    xdata, Y_np, x0_np, bt = bench_data(B_MAIN, seed=0)
+    Y = torch.tensor(Y_np, dtype=torch.float32, device=dev)
+    P0 = torch.tensor(x0_np, dtype=torch.float32, device=dev)
+    x = torch.tensor(xdata, dtype=torch.float32, device=dev)
+    truth = torch.tensor(bt, dtype=torch.float64, device=dev)
+    opts = lt.Options(iterations=ITERATIONS, radius=RADIUS, **TOLS)
+    runs = {
+        "curve_fit_batch Dogleg(Cholesky()) (separable, gridded, fused='ssr')":
+            lambda: curve_fit_batch(
+                "exp_saturation", xdata, Y, P0, optimizer=lt.Dogleg(lt.Cholesky()),
+                options=opts, min_converged_fraction=FRAC, separable=True,
+                gridded=True, fused="ssr"),
+        "solve_batch default optimizer (two parameters, grid shared)":
+            lambda: lt.solve_batch(exp_saturation_residual, P0, (x, Y), options=opts,
+                                   data_axis=(None, 0), output_length=M,
+                                   min_converged_fraction=FRAC),
+    }
+    print(f"== phase 10d: batched Dogleg at B={B_MAIN}, m={M}, float32")
+    for label, run in runs.items():
+        kv.launches = gram.launches = 0
+        secs, raw = sync_time(run)
+        launches = (kv.launches, gram.launches)
+        conv = raw["converged"].double().mean().item()
+        err = rel(raw["minimizer"], truth).median().item()
+        print(f"  {label}: converged {conv:.6f}, median rel error vs truth {err:.3e}, "
+              f"launches (kernel_varpro, gram) {launches}, first call {secs:.3f} s")
+        check(launches == (0, 0), f"{label}: no kernel launched")
+        check(conv >= 0.99 and err <= 1e-4,
+              f"{label}: >= 99% converged, median relative error <= 1e-4")
+        time_batch(run, label, smi, B_MAIN)
+        profile_batch(run, raw, label, smi)
+
+    print(f"== phase 10d: the first {SINGLE_FITS} fits, float64: one batch against "
+          "one fit at a time")
+    x64 = torch.tensor(xdata, device=dev)
+    Y64 = torch.tensor(Y_np[:SINGLE_FITS], device=dev)
+    raw = lt.solve_batch(exp_saturation_residual, torch.tensor(x0_np[:SINGLE_FITS], device=dev),
+                         (x64, Y64), data_axis=(None, 0), output_length=M)
+    step = SINGLE_FITS // 8
+    out, secs = run_jobs(pool, [("single", lo, lo + step)
+                                for lo in range(0, SINGLE_FITS, step)], "one fit at a time")
+    rows = [row for job in sorted(out) for row in out[job]["rows"]]
+    batch = {k: raw[k].cpu().numpy() for k in SINGLE_KEYS}
+    one = {k: np.asarray([r[k] for r in rows]) for k in SINGLE_KEYS}
+    rdiff = float(np.max(np.abs(batch["minimizer"] - one["minimizer"]) / np.abs(one["minimizer"])))
+    counters = all((batch[k] == one[k]).all() for k in
+                   ("iterations", "f_calls", "g_calls", "mul_calls", "converged"))
+    above = np.maximum(batch["ssr"], one["ssr"]) > 1e-20
+    flags = all((batch[k][above] == one[k][above]).all()
+                for k in ("x_converged", "f_converged", "g_converged"))
+    print(f"  minimizers max rel diff {rdiff:.3e}, iterations and counters equal {counters}, "
+          f"criteria equal where ssr > 1e-20 ({int(above.sum())} fits) {flags}, "
+          f"converged {batch['converged'].mean():.4f}; {SINGLE_FITS} single solves in "
+          f"{secs:.2f} s over the pool [{smi}]")
+    check(counters and flags and rdiff <= 1e-10,
+          "the batch equals one fit at a time (iterations, flags, minimizers within 1e-10)")
+
+
+def phase_bounded_batches(dev, smi):
+    """Phase 10e: a lower bound on b1 at the 30th percentile of the truth."""
+    import leastsquaresoptim_jl_torch as lt
+    from leastsquaresoptim_jl_torch.models import curve_fit_batch
+    from leastsquaresoptim_jl_torch.ops import gram
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    xdata, Y_np, x0_np, bt = bench_data(B_MAIN, seed=0)
+    lo = np.float32(np.quantile(bt[:, 1], 0.3))
+    lower = np.array([-np.inf, lo])
+    Y = torch.tensor(Y_np, dtype=torch.float32, device=dev)
+    P0 = torch.tensor(np.maximum(x0_np, lower), dtype=torch.float32, device=dev)
+    truth = torch.tensor(bt, dtype=torch.float64, device=dev)
+    below = truth[:, 1] <= float(lo)
+    opts = lt.Options(iterations=ITERATIONS, radius=RADIUS, **TOLS)
+    print(f"== phase 10e: bounded batches, lower b1 = {float(lo)!r} (30th percentile of "
+          f"the truth; {below.double().mean().item():.4f} of the fits below it), "
+          f"B={B_MAIN}, m={M}, float32")
+    for opt in (lt.LevenbergMarquardt(lt.Cholesky()), lt.Dogleg(lt.Cholesky())):
+        label = f"curve_fit_batch {type(opt).__name__}(Cholesky()) bounded"
+
+        def run(opt=opt):
+            return curve_fit_batch("exp_saturation", xdata, Y, P0, optimizer=opt,
+                                   options=opts, lower=lower, min_converged_fraction=FRAC,
+                                   separable=True, gridded=True, fused="ssr")
+
+        kv.launches = gram.launches = 0
+        secs, raw = sync_time(run)
+        launches = (kv.launches, gram.launches)
+        b1 = raw["minimizer"][:, 1].double()
+        conv = raw["converged"].double().mean().item()
+        pinned = ((b1 - float(lo)).abs() <= 1e-6 * float(lo))[below].double().mean().item()
+        free = (rel(raw["minimizer"], truth).amax(dim=1) <= 1e-4)[~below].double().mean().item()
+        feasible = bool((b1 >= float(lo)).all())
+        print(f"  {label}: feasible {feasible}, converged {conv:.6f}, fits below the bound "
+              f"at it (1e-6) {pinned:.6f}, the rest within 1e-4 of the truth {free:.6f}, "
+              f"launches {launches}, first call {secs:.3f} s")
+        check(feasible and conv >= 0.99 and pinned >= 0.99 and free >= 0.99,
+              f"{label}: feasible, >= 99% converged, >= 99% pinned, >= 99% of the rest "
+              "within 1e-4")
+        check(launches == (0, 0), f"{label}: no kernel launched")
+        time_batch(run, label, smi, B_MAIN)
+        profile_batch(run, raw, label, smi)
+
+
+def phase_kernel_bases(dev, smi):
+    """Phase 10f: power and michaelis_menten through curve_fit_batch and
+    through the kernel; one K = 8 launch of each against its plain version."""
+    import leastsquaresoptim_jl_torch as lt
+    from leastsquaresoptim_jl_torch.interop import kernel_state
+    from leastsquaresoptim_jl_torch.models import curve_fit_batch
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    opts = lt.Options(iterations=ITERATIONS, radius=RADIUS, **TOLS)
+    kernel_kw = dict(TOLS, iterations=ITERATIONS, min_converged_fraction=FRAC,
+                     k_iters=K, radius=RADIUS)
+    tols = (TOLS["x_tol"], TOLS["f_tol"], TOLS["g_tol"])
+    rows = {}
+    for basis in ("power", "michaelis_menten"):
+        xd, Y_np, a0 = basis_data(basis, B_MAIN, M, seed=1)
+        print(f"== phase 10f: {basis} at B={B_MAIN}, m={M}, float32")
+        Y = torch.tensor(Y_np, dtype=torch.float32, device=dev)
+        p0 = np.stack([np.ones(B_MAIN), a0], 1)
+        P0 = torch.tensor(p0, dtype=torch.float32, device=dev)
+        A0 = P0[:, 1].contiguous()
+
+        def plain(basis=basis, xd=xd, Y=Y, P0=P0):
+            return curve_fit_batch(basis, xd, Y, P0, separable=True,
+                                   optimizer=lt.LevenbergMarquardt(lt.Cholesky()),
+                                   options=opts, min_converged_fraction=FRAC)
+
+        def kernel(basis=basis, xd=xd, Y=Y, A0=A0):
+            return kv.varpro_lm_p1_kernel_solve(basis, xd, Y, A0, **kernel_kw)
+
+        kv.launches = 0
+        raw = plain()
+        torch.cuda.synchronize()
+        plain_launches = kv.launches
+        kv.launches = 0
+        out = kernel()
+        torch.cuda.synchronize()
+        rows[basis] = kv.launches
+        conv_p = raw["converged"].double().mean().item()
+        conv_k = out["converged"].double().mean().item()
+        d = rel(out["alpha"], raw["minimizer"][:, 1]).median().item()
+        print(f"  launches: plain route {plain_launches}, kernel route {rows[basis]}; "
+              f"converged {conv_p:.6f} (plain), {conv_k:.6f} (kernel); median alpha rel "
+              f"diff {d:.3e}")
+        check(plain_launches == 0 and rows[basis] >= 1,
+              f"{basis}: 0 launches on the plain route, >= 1 on the kernel route")
+        check(conv_p >= 0.99 and conv_k >= 0.99 and d <= 1e-5,
+              f"{basis}: both routes >= 99% converged, median alpha difference <= 1e-5")
+        time_batch(plain, f"{basis} curve_fit_batch route", smi, B_MAIN)
+        time_batch(kernel, f"{basis} kernel route", smi, B_MAIN)
+
+        x = torch.tensor(xd, dtype=torch.float32, device=dev)
+        state0 = torch.tensor(kernel_state(a0, RADIUS, np.float32), device=dev)
+        sk = kv._launch_kernel(basis, x, Y, state0.clone(), K, tols, float(ITERATIONS))
+        sr = kv._launch_reference(basis, x, Y, state0.clone(), K, tols, float(ITERATIONS))
+        torch.cuda.synchronize()
+        check_parity(f"{basis} one launch K={K} at B={B_MAIN}", state_parity(sk, sr),
+                     torch.float32, kv.lanes_per_fit(M))
+        for fn in (kv._launch_kernel, kv._launch_reference):
+            launch_ms(fn, x, Y, state0, tols, 3, basis=basis)  # warm-up
+        ms_k = launch_ms(kv._launch_kernel, x, Y, state0, tols, basis=basis)
+        ms_r = launch_ms(kv._launch_reference, x, Y, state0, tols, basis=basis)
+        fit_iters = int((sk[:, kv._ITERS] - state0[:, kv._ITERS]).sum().item())
+        bound, bound_by = varpro_bound(B_MAIN, M, fit_iters, 4, basis)
+        print(f"  one launch K={K}, {kv.lanes_per_fit(M)} lanes per fit: kernel "
+              f"{ms_k:.4f} ms, plain version {ms_r:.4f} ms (median of 20, CUDA events); "
+              f"bound {bound:.4f} ms ({bound_by}; {fit_iters} fit-iterations), kernel at "
+              f"{bound / ms_k:.1%} of it [{smi}]")
+    return rows
+
+
+def phase_reference_problems(dev, smi):
+    """Phase 10: MINPACK, NIST, multistart, batched Dogleg, bounded
+    batches and the kernel's other bases. The solves of 10a-10c and 10d's
+    single fits are host-bound and independent: they run in a pool of
+    worker processes, each with its own CUDA context on card 0, 10a-10c
+    as one queue, longest first."""
+    import multiprocessing
+
+    workers = min(8, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers, _worker_init, (str(dev),)) as pool:
+        jobs = reference_jobs()
+        out, secs = run_jobs(pool, jobs, "phases 10a-10c")
+        print(f"== phases 10a-10c: {len(jobs)} solves over {workers} worker processes "
+              f"on {dev} in {secs:.2f} s (job seconds are taken with the other "
+              f"workers running) [{smi}]")
+        phase_minpack(out, smi)
+        phase_nist(out, smi)
+        phase_multistart(out, smi)
+        phase_batched_dogleg(dev, pool, smi)
+        pool.close()
+        pool.join()
+    phase_bounded_batches(dev, smi)
+    phase_kernel_bases(dev, smi)
+    print(f"== phase 10 took {time.perf_counter() - t0:.2f} s")
 
 
 if __name__ == "__main__":

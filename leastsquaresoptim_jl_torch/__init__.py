@@ -3,18 +3,22 @@ leastsquaresoptim_jl_tpu for NVIDIA Hopper GPUs.
 
 It imports torch and never jax. Modules keep the JAX package's names and
 paths, so each counterpart is easy to find. Ported so far: the batched
-VarPro curve-fit path (``curve_fit_batch``) with the fused p = 1 VarPro LM
-kernel and the Gram kernel, both written by hand in CUDA C++ for sm_90a;
-the single-fit dense path (``solve`` / ``optimize``, LM and Dogleg over QR
-and Cholesky, bounds, geodesic acceleration); and the matrix-free path
+VarPro curve-fit path (``curve_fit_batch``, bounded or not) with the fused
+p = 1 VarPro LM kernel and the Gram kernel, both written by hand in CUDA
+C++ for sm_90a; batched LM and Dogleg with box bounds (``solve_batch``)
+and multi-start solves (``optimize_multistart``); the single-fit dense
+path (``solve`` / ``optimize``, LM and Dogleg over QR and Cholesky,
+bounds, geodesic acceleration); the matrix-free path
 (``matrix_free_problem``, LSMR over Jacobian operators, the row-sharded
-``parallel.solve_sharded``).
+``parallel.solve_sharded``); and the reference's test problems
+(``models.minpack``, ``models.nist``).
 """
 
 from . import config, parallel
 from .api import optimize, optimize_problem, solve
 from .batch import solve_batch
 from .models import curve_fit_batch
+from .multistart import best_of_raw, latin_hypercube_starts, optimize_multistart
 from .optimizer.base import Dogleg, LevenbergMarquardt
 from .optimizer.common import Options
 from .problem import (
@@ -27,7 +31,8 @@ from .solver.base import LSMR, QR, BlockCholesky, Cholesky
 
 __all__ = [
     "config", "parallel", "solve", "optimize", "optimize_problem",
-    "solve_batch", "curve_fit_batch", "Dogleg", "LevenbergMarquardt",
+    "solve_batch", "curve_fit_batch", "optimize_multistart",
+    "latin_hypercube_starts", "best_of_raw", "Dogleg", "LevenbergMarquardt",
     "Options", "LeastSquaresProblem", "least_squares_problem",
     "matrix_free_problem", "LeastSquaresResult", "IsFiniteError", "LSMR",
     "QR", "Cholesky", "BlockCholesky",

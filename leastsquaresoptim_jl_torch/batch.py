@@ -3,8 +3,10 @@
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/batch.py``. The user's
 residual ``f(x, data)`` is written for ONE fit; ``torch.func.vmap`` maps it
 over the batch (with per-leaf data axes, ``None`` for shared leaves), and
-the LM loop pieces then step the whole batch at once. A fit that is done
-is frozen: its carry leaves keep their values while the others move on.
+the LM or Dogleg loop pieces then step the whole batch at once. A fit that
+is done is frozen: its carry leaves keep their values while the others
+move on. Box bounds are shared by every fit; the bounded step pins each
+fit on its own (``torch.where`` only, optimizer/common.py).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Callable, Optional
 import torch
 
 from ._device import data_device
-from .optimizer.common import Options
+from .api import _check_initial_bounds
+from .optimizer.common import Options, validate_bounds
 from .problem import least_squares_problem
 
 
@@ -53,6 +56,10 @@ def solve_batch(
     check reads one count back to the host, a device-to-host sync; fits
     still freeze at their own iteration.
 
+    ``optimizer`` defaults to ``Dogleg(Cholesky())``. ``lower``/``upper``
+    are broadcast to the n parameters and shared by every fit; a start
+    outside them raises ``ValueError``.
+
     ``device`` is where numpy or list ``x0_batch`` goes (default: the
     current CUDA device; a tensor keeps its device).
 
@@ -67,13 +74,17 @@ def solve_batch(
             "fixed-size trace buffer in the result"
         )
     if optimizer is None and materialize_jacobian:
+        # The batched default is the normal-equations route (the JAX
+        # package's choice), not the single-fit Dogleg(QR()).
         from .optimizer.base import Dogleg
         from .solver.base import Cholesky
 
         optimizer = Dogleg(Cholesky())
-    if lower is not None or upper is not None:
-        raise NotImplementedError("bounded batch solves are not ported yet")
     x0_batch = torch.as_tensor(x0_batch, device=data_device(x0_batch, device))
+    lower, upper = validate_bounds(x0_batch, lower, upper)
+    # Reference: 'Initial guess must be within bounds'
+    # (levenberg_marquardt.jl:49-51); one host read for the whole batch.
+    _check_initial_bounds(x0_batch, lower, upper)
     if min_converged_fraction is None:
         if stop_check_every != 1:
             raise ValueError(
@@ -91,7 +102,7 @@ def solve_batch(
     return _solve_batch_fraction(
         residual, x0_batch, optimizer, opts, output_length, autodiff,
         materialize_jacobian, float(min_converged_fraction), fused,
-        stop_check_every,
+        stop_check_every, lower, upper,
     )
 
 
@@ -111,9 +122,12 @@ def _validate_stop_check_every(k):
 def _solve_batch_fraction(
     residual, x0_batch, optimizer, opts, output_length, autodiff,
     materialize_jacobian, frac, fused=None, stop_check_every=1,
+    lower=None, upper=None,
 ):
     """Fraction-stop lockstep loop over the batched residual; stops when
-    >= frac of the batch is done."""
+    >= frac of the batch is done. ``lower``/``upper`` are (n,) tensors
+    shared by every fit (or None)."""
+    from .optimizer import dogleg as _dogleg
     from .optimizer import levenberg_marquardt as _lm
     from .optimizer.base import Dogleg, LevenbergMarquardt, resolve
 
@@ -126,25 +140,26 @@ def _solve_batch_fraction(
         materialize_jacobian=materialize_jacobian,
     )
     optimizer = resolve(optimizer, problem)
-    if isinstance(optimizer, Dogleg):
-        raise NotImplementedError(
-            "batched Dogleg solves are not ported yet; pass "
-            "LevenbergMarquardt(Cholesky())"
-        )
-    if not isinstance(optimizer, LevenbergMarquardt):
-        raise TypeError(f"unknown optimizer {optimizer!r}")
-    if optimizer.geodesic:
-        raise NotImplementedError(
-            "geodesic acceleration in batched solves is not ported yet; "
-            "it runs for one fit (solve / optimize)"
-        )
     if fused is None:
         fused = False  # same default as the JAX package's api.solve
-
-    carry, cond_fn, body_fn, finalize = _lm.loop_pieces(
-        problem, optimizer.solver, opts, None, None, x0_batch,
-        fused=fused, geodesic=optimizer.geodesic,
-    )
+    if isinstance(optimizer, LevenbergMarquardt):
+        if optimizer.geodesic:
+            raise NotImplementedError(
+                "geodesic acceleration in batched solves is not ported "
+                "yet; it runs for one fit (solve / optimize)"
+            )
+        pieces = _lm.loop_pieces(
+            problem, optimizer.solver, opts, lower, upper, x0_batch,
+            fused=fused,
+        )
+    elif isinstance(optimizer, Dogleg):
+        pieces = _dogleg.loop_pieces(
+            problem, optimizer.solver, opts, lower, upper, x0_batch,
+            fused=fused,
+        )
+    else:
+        raise TypeError(f"unknown optimizer {optimizer!r}")
+    carry, cond_fn, body_fn, finalize = pieces
 
     # Integer quorum. The 1e-9 slack keeps an exact fraction exact
     # (0.07 * 100 = 7.000000000000001 in binary would otherwise demand an

@@ -2,10 +2,10 @@
 
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/models/curves.py``.
 :func:`curve_fit_batch` fits thousands of independent curves at once — the
-main workload (bench.py's batched ``exp_saturation`` fits). This slice
-ports the linear-loss path with its VarPro (``separable=True``) and
-gridded-exp (``gridded=True``) options; robust losses (IRLS), automatic
-starts, bounds and the single-fit ``curve_fit`` are later slices.
+main workload (bench.py's batched ``exp_saturation`` fits). Ported: the
+linear-loss path with its VarPro (``separable=True``) and gridded-exp
+(``gridded=True``) options and box bounds; robust losses (IRLS),
+automatic starts and the single-fit ``curve_fit`` are later slices.
 
 The device and dtype come from ``ydata``: a tensor keeps its device, and
 numpy or list data goes to the current CUDA device or to ``device=``
@@ -29,6 +29,10 @@ from ..optimizer.common import Options
 CURVES = {
     # saturating exponential: b0 * (1 - exp(-b1 x))   [misra1a / BoxBOD shape]
     "exp_saturation": lambda x, b: b[0] * (1.0 - torch.exp(-b[1] * x)),
+    # power law: b0 * x^b1   [DanWood shape]
+    "power": lambda x, b: b[0] * x ** b[1],
+    # Michaelis-Menten: b0 x / (b1 + x)
+    "michaelis_menten": lambda x, b: b[0] * x / (b[1] + x),
 }
 
 _GRIDDED_NAMES = ("exp_saturation",)
@@ -131,6 +135,11 @@ def curve_fit_batch(
     evaluation schedules (True / "ssr"). ``device`` is where numpy or
     list ``ydata`` goes (default: the current CUDA device; a tensor keeps
     its device).
+
+    ``lower``/``upper`` are full-parameter box bounds shared by the batch.
+    Separable fits take bounds on the nonlinear parameters only (the
+    entries at the linear indices must be infinite, ``split_nl_bounds``);
+    the joint route passes them to ``solve_batch`` as they are.
     """
     if isinstance(p0, str):
         raise NotImplementedError("p0='auto' (data-driven starts) is not ported yet")
@@ -138,8 +147,6 @@ def curve_fit_batch(
         raise NotImplementedError(
             "robust losses (IRLS / robustify) are not ported yet"
         )
-    if lower is not None or upper is not None:
-        raise NotImplementedError("bounded curve fits are not ported yet")
     sep = None
     gridded_name = model if gridded else None
     if separable:
@@ -197,7 +204,7 @@ def curve_fit_batch(
         axes = (x_axis, 0, w_axis)
 
     if sep is not None:
-        from .separable import assemble_minimizer, reduced_residual
+        from .separable import assemble_minimizer, reduced_residual, split_nl_bounds
 
         n_full = len(sep.lin) + len(sep.nl)
         if p0.shape[-1] != n_full:
@@ -205,12 +212,14 @@ def curve_fit_batch(
                 f"p0 must carry the FULL parameter vector (n={n_full} for "
                 f"this separable model); got n={p0.shape[-1]}"
             )
+        lower_nl, upper_nl = split_nl_bounds(sep, lower, upper)
         # Column slices, not a list index (which is copied from the host).
         alpha0 = torch.cat([p0[..., i:i + 1] for i in sep.nl], dim=-1)
         weighted = weights is not None
         raw = solve_batch(
             reduced_residual(sep, weighted=weighted), alpha0, data,
             optimizer, options=options, output_length=m,
+            lower=lower_nl, upper=upper_nl,
             data_axis=axes, min_converged_fraction=min_converged_fraction,
             fused=fused, stop_check_every=stop_check_every,
         )
@@ -230,7 +239,8 @@ def curve_fit_batch(
 
     return solve_batch(
         f, p0, data, optimizer,
-        options=options, output_length=m, data_axis=axes,
+        options=options, output_length=m, lower=lower, upper=upper,
+        data_axis=axes,
         min_converged_fraction=min_converged_fraction,
         fused=fused, stop_check_every=stop_check_every,
     )

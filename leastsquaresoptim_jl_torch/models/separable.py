@@ -18,9 +18,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["SeparableModel", "SEPARABLE", "gridded_separable"]
+__all__ = ["SeparableModel", "SEPARABLE", "gridded_separable", "split_nl_bounds"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,13 +58,20 @@ def _col(v):
     return v[..., None]
 
 
-# Separable structure of the CURVES zoo. The other p = 1 entries (power,
-# michaelis_menten, gaussian, logistic) and the p > 1 ones follow with
-# the generic coefficient solve.
+# Separable structure of the CURVES zoo: the p = 1 entries with one
+# nonlinear parameter, the kernel's three bases (ops/kernel_varpro.py
+# BASES). gaussian, logistic and the p > 1 entries follow with the
+# generic coefficient solve.
 SEPARABLE = {
     # b0 * (1 - exp(-b1 x)): linear b0, nonlinear b1
     "exp_saturation": SeparableModel(
         (0,), (1,), lambda x, a: _col(1.0 - torch.exp(-a[0] * x))
+    ),
+    # b0 * x^b1: linear b0, nonlinear b1
+    "power": SeparableModel((0,), (1,), lambda x, a: _col(x ** a[0])),
+    # b0 * x / (b1 + x): linear b0, nonlinear b1
+    "michaelis_menten": SeparableModel(
+        (0,), (1,), lambda x, a: _col(x / (a[0] + x))
     ),
 }
 
@@ -90,6 +98,40 @@ def gridded_separable(name: str, t0: float, dt: float, m: int) -> SeparableModel
     base = SEPARABLE[name]
     phi = lambda x, a: _col(1.0 - e(-a[0]))  # noqa: E731
     return SeparableModel(base.lin, base.nl, phi, base.canonical, base.guess)
+
+
+def split_nl_bounds(sm: SeparableModel, lower, upper):
+    """Validate full-``beta`` box bounds for a VarPro solve and slice them
+    to the nonlinear parameters.
+
+    The linear coefficients are solved in closed form, unconstrained, so
+    their bound components must be infinite. Returns ``(lower_nl,
+    upper_nl)`` as float64 numpy arrays, with ``None`` for a side that is
+    absent or infinite on every nonlinear parameter."""
+    n = len(sm.lin) + len(sm.nl)
+
+    def side(bound, name, fill):
+        if bound is None:
+            return None
+        if isinstance(bound, torch.Tensor):
+            bound = bound.detach().cpu()
+        b = np.asarray(bound, np.float64)
+        if b.shape != (n,):
+            raise ValueError(
+                f"{name} must be the FULL parameter vector of shape "
+                f"({n},) for this separable model; got {b.shape}"
+            )
+        if not np.all(b[list(sm.lin)] == fill):
+            raise ValueError(
+                "separable=True supports bounds on the NONLINEAR "
+                f"parameters only; {name} components at the linear "
+                f"indices {sm.lin} must be {fill} (the closed-form "
+                "coefficient solve is unconstrained)"
+            )
+        sub = b[list(sm.nl)]
+        return None if np.all(sub == fill) else sub
+
+    return side(lower, "lower", -np.inf), side(upper, "upper", np.inf)
 
 
 def _coefficients_and_residual(P, y):

@@ -1,9 +1,8 @@
 """Optimizer tags and default-selection rules (reference: src/types.jl:89-127).
 
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/optimizer/base.py``.
-Both optimizers are implemented for one fit; batched solves
-(``solve_batch``) take ``LevenbergMarquardt`` without geodesic
-acceleration only so far.
+Both optimizers run one fit and batches (``solve_batch``); geodesic
+acceleration runs for one fit only so far.
 """
 
 from __future__ import annotations
@@ -33,7 +32,14 @@ class LevenbergMarquardt(AbstractOptimizer):
     geodesic acceleration (Transtrum & Sethna 2012): half the second-order
     correction on each step, from the exact f''[dx, dx] and the same
     damped solve, dropped where it exceeds ``config.GEODESIC_ALPHA`` times
-    the step; two more model evaluations per iteration."""
+    the step; two more model evaluations per iteration.
+
+    f''[dx, dx] is a forward-over-forward JVP, and PyTorch reads a zero
+    second derivative through a ``torch.autograd.Function``'s ``jvp``
+    without a warning. The port's own gridded exp is switched to plain
+    ``exp`` inside that pass (``ops/special.higher_order_derivatives``),
+    but a residual built on the caller's own ``autograd.Function`` gets a
+    zero acceleration: ``geodesic=True`` then runs plain LM, silently."""
 
     solver: Optional[AbstractSolver] = None
     geodesic: bool = False

@@ -13,8 +13,11 @@ The JAX package's ``lax.cond`` between the expensive block (Jacobian,
 gradient, Cauchy length, Gauss-Newton step) and its reuse after a rejected
 step becomes a Python branch for one fit: ``optimize_loop`` reads the
 reuse flag in the same device-to-host read as the stop test and passes it
-to ``body_fn``, which then takes the block from the carry. The work
-counters keep the reference's reuse accounting.
+to ``body_fn``, which then takes the block from the carry. A batch (the
+fraction-stop loop in batch.py) takes the JAX package's ``batched=True``
+form instead: the block is evaluated every iteration and never carried,
+so the carry holds tensors only and freezes leaf by leaf. The work
+counters keep the reference's reuse accounting either way.
 
 Box bounds clip the step (reference :148-157) and refine it on the active
 set (common.active_set_refinement): the free coordinates get a
@@ -203,10 +206,13 @@ def loop_pieces(
             dgn=dgn, wnorm_dgn=wnorm(dgn, dtd), ls_iter=ls_iter,
         )
 
-    def body_fn(c, reuse=False):
+    def body_fn(c, reuse=None):
         """One iteration. ``reuse`` is the carry's reuse flag read on the
         host: True takes the expensive block from the carry, False
-        computes it (and carries it for the next iteration)."""
+        computes it (and carries it for the next iteration). None (the
+        batch loop, whose flag is per fit) computes it unconditionally
+        and carries no block: x is unchanged on a rejected step, so the
+        recomputed block equals the reused one."""
         it = c["it"] + 1
         x, ssr = c["x"], c["ssr"]
         jstate = c["jstate"] if (fused_gram or fused_flat) else x
@@ -360,7 +366,8 @@ def loop_pieces(
         if fused_gram:
             new["gram"] = torch.where(acc.unsqueeze(-1), gtrial, G)
             new["grhs"] = torch.where(acc, btrial, b)
-        new["block"] = blk
+        if reuse is not None:
+            new["block"] = blk
         new["trace"] = update_trace(c["trace"], opts, it, new["ssr"], maxabs_gr)
         return new
 

@@ -38,13 +38,18 @@ def _forward_res_jac(residual_fn: Callable) -> Callable:
     At n = 1 a single ``torch.func.jvp`` gives r and J together. For n > 1
     the jvp is vmapped over the n basis tangents; the primal does not
     depend on the tangent, so it is evaluated once (the counterpart of the
-    JAX package's ``jax.linearize`` + vmapped jvp)."""
+    JAX package's ``jax.linearize`` + vmapped jvp).
+
+    J takes r's dtype: forward mode promotes the tangent of ``c * t`` for a
+    Python float c and a 0-d float32 t to float64 (the scalar loses its
+    weak type in the tangent rule), which residuals built from ``x[i]``
+    hit."""
 
     def res_jac_fn(x):
         n = x.shape[-1]
         if n == 1:
             r, dr = torch.func.jvp(residual_fn, (x,), (torch.ones_like(x),))
-            return r, dr.unsqueeze(-1)
+            return r, dr.unsqueeze(-1).to(r.dtype)
         eye = torch.eye(n, dtype=x.dtype, device=x.device)
         tangents = eye.reshape((n,) + (1,) * (x.ndim - 1) + (n,))
         tangents = tangents.expand((n,) + tuple(x.shape))
@@ -52,7 +57,7 @@ def _forward_res_jac(residual_fn: Callable) -> Callable:
             lambda t: torch.func.jvp(residual_fn, (x,), (t,)),
             out_dims=(None, -1),
         )(tangents)
-        return r, J
+        return r, J.to(r.dtype)
 
     return res_jac_fn
 

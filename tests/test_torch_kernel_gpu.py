@@ -145,6 +145,45 @@ def test_solve_on_cuda_launches_kernel_and_converges(cuda_device):
 
 
 @pytest.mark.gpu
+def test_batched_dogleg_on_cuda_equals_one_fit_at_a_time(cuda_device):
+    """solve_batch's default, batched Dogleg(Cholesky()), in float64 on
+    the card: each fit of a batch of 64 ends where it ends alone (equal
+    iterations and counters, minimizers within 1e-10 relative; which
+    criterion fired is compared where the final ssr is above 1e-20, below
+    it the last step is rounding). No kernel lies on this path."""
+    import leastsquaresoptim_jl_torch as lt
+
+    rng = np.random.default_rng(0)
+    B, m = 64, 64
+    xd = np.linspace(1.0, 80.0, m)
+    bt = np.stack([rng.uniform(100, 400, B), rng.uniform(1e-2, 6e-2, B)], 1)
+    Y = bt[:, :1] * (1.0 - np.exp(-bt[:, 1:2] * xd))
+    x0 = bt * rng.uniform(0.7, 1.4, (B, 2))
+    x, Yt = (torch.tensor(v, device=cuda_device) for v in (xd, Y))
+
+    def f(beta, data):
+        xx, yy = data
+        return yy - beta[0] * (1.0 - torch.exp(-beta[1] * xx))
+
+    launches = (tk.launches, tg.launches)
+    raw = lt.solve_batch(f, torch.tensor(x0, device=cuda_device), (x, Yt),
+                         data_axis=(None, 0), output_length=m)
+    assert raw["converged"].all() and raw["minimizer"].device == cuda_device
+    for i in range(B):
+        one = lt.solve(lt.least_squares_problem(lambda b: f(b, (x, Yt[i])),
+                                                torch.tensor(x0[i], device=cuda_device)),
+                       lt.Dogleg(lt.Cholesky()))
+        np.testing.assert_allclose(raw["minimizer"][i].cpu().numpy(),
+                                   one["minimizer"].cpu().numpy(), rtol=1e-10)
+        for k in ("iterations", "f_calls", "g_calls", "mul_calls", "converged"):
+            assert int(raw[k][i]) == int(one[k]), (i, k)
+        if max(float(raw["ssr"][i]), float(one["ssr"])) > 1e-20:
+            for k in ("x_converged", "f_converged", "g_converged"):
+                assert bool(raw[k][i]) == bool(one[k]), (i, k)
+    assert (tk.launches, tg.launches) == launches
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_cannot_take(cuda_device):
     xd, Y, a0 = _problem(np.float32, 8, 1025)
     with pytest.raises(ValueError, match="m <= 1024"):

@@ -395,8 +395,15 @@ def _batched_geodesic():
                    optimizer=lt.LevenbergMarquardt(lt.Cholesky(), geodesic=True))
 
 
+def _nist_separable():
+    from leastsquaresoptim_jl_torch.models import nist
+
+    nist.NIST_SEPARABLE
+
+
 STILL_WAITS = {
     "pytree x": (_pytree_x, "pytree parameters"),
+    "NIST_SEPARABLE": (_nist_separable, "NIST_SEPARABLE"),
     "sparse J": (_sparse_jacobian, "sparse Jacobians"),
     "batched matrix-free": (_batched_matrix_free, "batched matrix-free"),
     "BlockCholesky": (_block_cholesky, "BlockCholesky"),
@@ -405,6 +412,17 @@ STILL_WAITS = {
 }
 
 X2 = torch.zeros(2, dtype=F64)
+TOL8 = lt.Options(x_tol=1e-8, f_tol=1e-8, g_tol=1e-8)
+
+
+def _best_row(**kw):
+    """A batch of four Rosenbrock starts; its best row as a result."""
+    starts = torch.tensor([[0.0, 0.0], [-1.2, 1.0], [2.0, 2.0], [0.5, -0.5]], dtype=F64)
+    raw = lt.solve_batch(rosenbrock_t, starts, **kw)
+    assert bool(raw["converged"].all())
+    return lt.result.result_from_raw(lt.best_of_raw(raw), TOL8)
+
+
 NOW_PORTED = {
     "LSMR": lambda: lt.optimize(rosenbrock_t, X2, lt.LevenbergMarquardt(lt.LSMR())),
     "materialize_jacobian=False": lambda: lt.optimize(
@@ -418,6 +436,9 @@ NOW_PORTED = {
         lt.solve(lt.least_squares_problem(rosenbrock_t, X2), lt.Dogleg(lt.QR()),
                  fused=True),
         lt.Options(x_tol=1e-8, f_tol=1e-8, g_tol=1e-8)),
+    "batched Dogleg": lambda: _best_row(),
+    "bounded batch": lambda: _best_row(optimizer=lt.LevenbergMarquardt(lt.Cholesky()),
+                                       lower=[-2.0, -1.0], upper=[3.0, 3.0]),
 }
 
 
