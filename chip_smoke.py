@@ -1,8 +1,9 @@
 """Drive the PyTorch port on one NVIDIA GPU: the batched curve-fit path,
 the Gram kernel and the row-sharded Gram, the single-fit dense path, the
 matrix-free path (LSMR over Jacobian operators) at BASELINE.json config
-#4's size, and the reference's test problems (MINPACK, NIST StRD) with
-batched Dogleg, bounded batches and multistart.
+#4's size, the reference's test problems (MINPACK, NIST StRD) with
+batched Dogleg, bounded batches and multistart, and the rest of curve
+fitting (start-free multi-term fits, robust losses, single fits).
 
     python3 chip_smoke.py
 
@@ -161,6 +162,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    <= 1e-5; both routes' times; one K = 8 launch of each basis against its
    plain version (phase 2's float32 limits) with its time, bound and share
    (phase 5's method).
+
+11. The rest of curve fitting, no kernel of its own (every route resets
+   both kernels' counters and must read 0 launches; times, lockstep
+   iterations, converged share and one profiler pass per route, as 10d):
+   (a) start-free bi-exponential decays (FLIM-style; ``flim_data``, seed
+   11, the truth ranges of tests/test_init.py::test_curve_fit_batch_auto,
+   no noise) at B = 131072, m = 64 through curve_fit_batch("exp_sum_2",
+   p0="auto", separable, gridded, fused="ssr", LM(Cholesky()), stop at 99%
+   done) in float32 (>= 95% converged, median max relative error over the
+   converged fits < 1e-3) and float64 (> 95%, < 1e-4); the first 1024 fits
+   in float64 on the card against the CPU (minimizers within 1e-10
+   relative and iterations equal on >= 99%).
+   (b) start-free two-peak spectra (``peaks_data``, seed 12, m = 128)
+   through curve_fit_batch("gauss_sum_2", "auto", separable, LM(Cholesky()))
+   in float32: >= 95% converged, median error < 1e-3.
+   (c) outlier-robust fits (phase 3's data, 1% noise, three outliers of
+   +5-10 b0 per fit; ``outlier_data``, seed 13), float32: IRLS with huber
+   (separable, gridded), the joint route with soft_l1, and the linear-loss
+   control; each robust median error (a non-finite fit counts as infinite)
+   < 0.02 and < 1/5 of the control's; the IRLS round count.
+   (d) single fits in float64: Dogleg(QR)'s half of the NIST_SEPARABLE
+   scoreboard of tests/test_separable.py in a spawned pool (only MGH09 s0
+   may miss; the MGH10 s0 rescue must hold), start-free Lanczos3 within
+   1e-3 of the certified solution, a weighted curve_fit of Misra1b and its
+   covariance against numpy from the same J (1e-10), and polish of an 11a
+   float32 fit within 1e-10 of the float64 fit.
 
 The second-to-last line is a JSON object describing each kernel (times
 from phase 5 for kernel_varpro, at the lanes the rule picks, and from
@@ -379,6 +406,7 @@ def main():
     phase_single_fit(dev, smi)
     phase_matrix_free(dev, smi)
     phase_reference_problems(dev, smi)
+    phase_curve_fitting(dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "kernel_varpro",
@@ -1723,6 +1751,302 @@ def phase_reference_problems(dev, smi):
     phase_bounded_batches(dev, smi)
     phase_kernel_bases(dev, smi)
     print(f"== phase 10 took {time.perf_counter() - t0:.2f} s")
+
+
+# -- phase 11: the rest of curve fitting ----------------------------------------
+
+# f_scale of phase 11c's robust fits: the noise is 1% of each fit's
+# amplitude (b0 ~ U(100, 400), so sigma ~ U(1, 4)); f_scale sits at the
+# median sigma, where the robust losses leave the noise quadratic.
+ROBUST_F_SCALE = 2.5
+CPU_FITS = 1024  # phase 11a's device-independence check
+
+
+def flim_data(B, seed):
+    """Bi-exponential decays on linspace(0, 6, 64), no noise, with the truth
+    ranges of tests/test_init.py::test_curve_fit_batch_auto (amps U(1, 4),
+    U(0.5, 2); rates U(0.2, 0.8), U(1.5, 3.5))."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, 6.0, 64)
+    bt = np.stack([rng.uniform(1, 4, B), rng.uniform(0.2, 0.8, B),
+                   rng.uniform(0.5, 2, B), rng.uniform(1.5, 3.5, B)], axis=1)
+    Y = bt[:, :1] * np.exp(-bt[:, 1:2] * x) + bt[:, 2:3] * np.exp(-bt[:, 3:4] * x)
+    return x, Y, bt
+
+
+def peaks_data(B, seed):
+    """Two Gaussian peaks on linspace(0, 10, 128), no noise, with the truth
+    ranges of tests/test_init.py::test_gauss_sum_guess_noise_robust (amps
+    U(1, 4), centers U(1.5, 3.5) and U(5.5, 8.5), widths U(0.3, 1))."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, 10.0, 128)
+    bt = np.stack([rng.uniform(1, 4, B), rng.uniform(1.5, 3.5, B), rng.uniform(0.3, 1.0, B),
+                   rng.uniform(1, 4, B), rng.uniform(5.5, 8.5, B), rng.uniform(0.3, 1.0, B)],
+                  axis=1)
+    Y = sum(bt[:, 3 * j:3 * j + 1] * np.exp(-((x - bt[:, 3 * j + 1:3 * j + 2]) ** 2)
+                                             / (2 * bt[:, 3 * j + 2:3 * j + 3] ** 2))
+            for j in range(2))
+    return x, Y, bt
+
+
+def outlier_data(B, seed):
+    """Phase 3's bench_data with 1% Gaussian noise (of each fit's
+    amplitude b0) and three gross outliers per fit, at per-fit random
+    sample indices, each + U(5, 10) b0."""
+    xdata, Y, x0s, bt = bench_data(B, seed)
+    rng = np.random.default_rng(seed + 1)
+    Y = Y + 0.01 * bt[:, :1] * rng.standard_normal(Y.shape)
+    idx = np.argsort(rng.random((B, M)), axis=1)[:, :3]
+    np.put_along_axis(Y, idx, np.take_along_axis(Y, idx, 1)
+                      + rng.uniform(5, 10, (B, 3)) * bt[:, :1], 1)
+    return xdata, Y, x0s, bt
+
+
+def max_rel(minimizer, truth):
+    """Each fit's largest relative parameter error (float64); a fit that
+    ended non-finite counts as an infinite error."""
+    return torch.nan_to_num(rel(minimizer, truth).amax(dim=1), nan=float("inf"))
+
+
+def run_route(label, run, smi, B):
+    """One route of 11a-11c: reset both kernels' counters, solve, require
+    0 launches, then times and one profiler pass. Returns the result."""
+    from leastsquaresoptim_jl_torch.ops import gram
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    kv.launches = gram.launches = 0
+    secs, raw = sync_time(run)
+    launches = (kv.launches, gram.launches)
+    print(f"  {label}: launches (kernel_varpro, gram) {launches}, lockstep iterations "
+          f"{int(raw['iterations'].max())}, converged {raw['converged'].double().mean().item():.6f}, "
+          f"first call {secs:.3f} s")
+    check(launches == (0, 0), f"{label}: no kernel launched")
+    time_batch(run, label, smi, B)
+    profile_batch(run, raw, label, smi)
+    return raw
+
+
+def phase_start_free(dev, smi):
+    """Phases 11a and 11b: start-free exp_sum_2 and gauss_sum_2 batches."""
+    import leastsquaresoptim_jl_torch as lt
+    from leastsquaresoptim_jl_torch.models import curve_fit_batch
+
+    x, Y_np, bt = flim_data(B_MAIN, seed=11)
+    kw = dict(separable=True, gridded=True, fused="ssr",
+              optimizer=lt.LevenbergMarquardt(lt.Cholesky()), min_converged_fraction=FRAC)
+    out = {}
+    for dtype, conv_min, err_max in ((torch.float32, 0.95, 1e-3), (torch.float64, 0.95, 1e-4)):
+        print(f"== phase 11a: start-free exp_sum_2 (p0='auto', separable, gridded, "
+              f"fused='ssr', LM(Cholesky())), B={B_MAIN}, m=64, {dtype}")
+        Y = torch.tensor(Y_np, dtype=dtype, device=dev)
+        truth = torch.tensor(bt, dtype=torch.float64, device=dev)
+
+        def run(Y=Y):
+            return curve_fit_batch("exp_sum_2", x, Y, "auto", **kw)
+
+        raw = run_route(f"exp_sum_2 {dtype}", run, smi, B_MAIN)
+        conv = raw["converged"]
+        share = conv.double().mean().item()
+        err = max_rel(raw["minimizer"], truth)[conv].median().item()
+        print(f"  converged {share:.6f}, median max relative error over the converged fits "
+              f"{err:.3e}, finite {bool(torch.isfinite(raw['minimizer']).all())}")
+        check(share >= conv_min if dtype == torch.float32 else share > conv_min,
+              f"11a {dtype}: converged share {'>=' if dtype == torch.float32 else '>'} {conv_min}")
+        check(err < err_max, f"11a {dtype}: median max relative error < {err_max:g}")
+        out[dtype] = raw
+
+    print(f"== phase 11a: the first {CPU_FITS} fits in float64, on the card and on the CPU")
+    Y64 = torch.tensor(Y_np[:CPU_FITS], dtype=torch.float64)
+    on_card = curve_fit_batch("exp_sum_2", x, Y64.to(dev), "auto", **kw)
+    t0 = time.perf_counter()
+    on_cpu = curve_fit_batch("exp_sum_2", x, Y64, "auto", **kw)
+    cpu_s = time.perf_counter() - t0
+    d = rel(on_card["minimizer"].cpu(), on_cpu["minimizer"]).amax(dim=1)
+    same_its = (on_card["iterations"].cpu() == on_cpu["iterations"]).double().mean().item()
+    within = (d <= 1e-10).double().mean().item()
+    print(f"  minimizers within 1e-10 relative on {within:.6f} of the fits (max "
+          f"{d.max().item():.3e}), iterations equal on {same_its:.6f}; the CPU took "
+          f"{cpu_s:.2f} s")
+    check(within >= 0.99 and same_its >= 0.99,
+          "11a: card and CPU agree (minimizers 1e-10, iterations) on >= 99% of the fits")
+
+    x2, Y2_np, bt2 = peaks_data(B_MAIN, seed=12)
+    print(f"== phase 11b: start-free gauss_sum_2 (p0='auto', separable, LM(Cholesky())), "
+          f"B={B_MAIN}, m=128, float32")
+    Y2 = torch.tensor(Y2_np, dtype=torch.float32, device=dev)
+    truth2 = torch.tensor(bt2, dtype=torch.float64, device=dev)
+
+    def run2():
+        return curve_fit_batch("gauss_sum_2", x2, Y2, "auto", separable=True,
+                               optimizer=lt.LevenbergMarquardt(lt.Cholesky()),
+                               min_converged_fraction=FRAC)
+
+    raw = run_route("gauss_sum_2 float32", run2, smi, B_MAIN)
+    conv = raw["converged"]
+    share = conv.double().mean().item()
+    err = max_rel(raw["minimizer"], truth2)[conv].median().item()
+    print(f"  converged {share:.6f}, median max relative error over the converged fits {err:.3e}")
+    check(share >= 0.95 and err < 1e-3,
+          "11b: >= 95% converged, median max relative error < 1e-3")
+    return x, Y_np, out[torch.float32], out[torch.float64]
+
+
+def phase_robust(dev, smi):
+    """Phase 11c: outlier-robust bulk fits, IRLS and robustify against the
+    linear-loss control."""
+    import leastsquaresoptim_jl_torch as lt
+    from leastsquaresoptim_jl_torch.models import curve_fit_batch
+
+    xdata, Y_np, x0_np, bt = outlier_data(B_MAIN, seed=13)
+    Y = torch.tensor(Y_np, dtype=torch.float32, device=dev)
+    P0 = torch.tensor(x0_np, dtype=torch.float32, device=dev)
+    truth = torch.tensor(bt, dtype=torch.float64, device=dev)
+    lm = lt.LevenbergMarquardt(lt.Cholesky())
+    common = dict(optimizer=lm, options=lt.Options(iterations=ITERATIONS, radius=RADIUS, **TOLS),
+                  min_converged_fraction=FRAC)
+    routes = {
+        "IRLS huber (separable, gridded)": lambda: curve_fit_batch(
+            "exp_saturation", xdata, Y, P0, separable=True, gridded=True, loss="huber",
+            f_scale=ROBUST_F_SCALE, **common),
+        "joint soft_l1 (robustify)": lambda: curve_fit_batch(
+            "exp_saturation", xdata, Y, P0, loss="soft_l1", f_scale=ROBUST_F_SCALE, **common),
+        "linear-loss control (separable, gridded)": lambda: curve_fit_batch(
+            "exp_saturation", xdata, Y, P0, separable=True, gridded=True, **common),
+    }
+    print(f"== phase 11c: outlier-robust fits, B={B_MAIN}, m={M}, float32, 1% noise and 3 "
+          f"outliers of +5-10 b0 per fit, f_scale {ROBUST_F_SCALE}")
+    errs = {}
+    for label, run in routes.items():
+        raw = run_route(label, run, smi, B_MAIN)
+        errs[label] = max_rel(raw["minimizer"], truth).median().item()
+        rounds = raw.get("irls_rounds")
+        bad = int((~torch.isfinite(raw["minimizer"]).all(dim=1)).sum())
+        print(f"  {label}: median max relative error vs truth {errs[label]:.3e}, "
+              f"{bad} fits non-finite" + (f", IRLS rounds {rounds}" if rounds is not None else ""))
+    control = errs["linear-loss control (separable, gridded)"]
+    for label in list(routes)[:2]:
+        check(errs[label] < 0.02 and errs[label] < control / 5,
+              f"11c {label}: median error < 0.02 and < 1/5 of the control's ({control:.3e})")
+
+
+def varpro_job(job):
+    """One run of phase 11d's NIST_SEPARABLE scoreboard in a worker (the
+    protocol of tests/test_separable.py::test_nist_varpro_scoreboard)."""
+    import leastsquaresoptim_jl_torch as lt
+    from leastsquaresoptim_jl_torch.models import nist
+    from leastsquaresoptim_jl_torch.ops import gram
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    dev = _JOB_DEVICE
+    t0 = time.perf_counter()
+    _, opt, name, i = job
+    d = nist.DATASETS[name]
+    x = torch.tensor(d["x"], dtype=torch.float64, device=dev)
+    y = torch.tensor(d["y"], dtype=torch.float64, device=dev)
+    try:
+        r = lt.curve_fit(nist.NIST_SEPARABLE[name], x, y,
+                         torch.tensor(d["starts"][i], dtype=torch.float64, device=dev),
+                         separable=True, optimizer=_optimizer(opt, "QR"), iterations=3000,
+                         **NIST_TOLS)
+        out = dict(minimizer=r.minimizer.tolist(), iterations=r.iterations)
+    except lt.IsFiniteError:
+        out = dict(minimizer=[float("nan")] * len(d["solution"]), iterations=-1)
+    out.update(seconds=time.perf_counter() - t0, launches=kv.launches + gram.launches)
+    return job, out
+
+
+# Allowed misses of tests/test_separable.py::test_nist_varpro_scoreboard, by
+# optimizer (over QR). One fit costs milliseconds an iteration on the card
+# and every run goes to the 3000-iteration cap, so the card runs Dogleg's
+# half (the one with the MGH10 s0 rescue); tests/test_torch_nist_varpro.py
+# holds LM's allowed miss against the JAX package on the CPU.
+VARPRO_ALLOWED_MISSES = {"Dogleg": {("MGH09", 0)}}
+
+
+def phase_single_fits(dev, smi, x, Y_np, raw32, raw64):
+    """Phase 11d: single fits in float64 (the NIST_SEPARABLE scoreboard in
+    a pool of workers, start-free Lanczos3, a weighted NIST curve_fit, its
+    covariance, and polish of an 11a float32 fit)."""
+    import multiprocessing
+
+    import leastsquaresoptim_jl_torch as lt
+    from leastsquaresoptim_jl_torch.models import exp_sum_separable, nist
+    from leastsquaresoptim_jl_torch.utils import covariance
+
+    workers = min(8, os.cpu_count() or 1)
+    jobs = [("varpro", o, name, i) for o in VARPRO_ALLOWED_MISSES
+            for name in nist.NIST_SEPARABLE for i in (0, 1)]
+    print(f"== phase 11d: NIST_SEPARABLE scoreboard, {len(jobs)} float64 runs (3000 "
+          f"iterations, x_tol 1e-50) over {workers} workers on {dev}")
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with ctx.Pool(workers, _worker_init, (str(dev),)) as pool:
+        out = dict(pool.imap_unordered(varpro_job, jobs))
+        pool.close()
+        pool.join()
+    secs = time.perf_counter() - t0
+    check(all(r["launches"] == 0 for r in out.values()), "11d: no kernel launched in the workers")
+    for o, allowed in VARPRO_ALLOWED_MISSES.items():
+        runs = {(j[2], j[3]): r for j, r in out.items() if j[1] == o}
+        misses = sorted(k for k, r in runs.items() if not np.linalg.norm(
+            np.asarray(r["minimizer"]) - np.asarray(nist.DATASETS[k[0]]["solution"])) <= 1e-3)
+        print(f"  {o}(QR): {len(runs) - len(misses)}/{len(runs)} within 1e-3 of the certified "
+              f"solution, misses {misses}, job seconds "
+              f"{sum(r['seconds'] for r in runs.values()):.2f} [{smi}]")
+        check(len(runs) == 28 and set(misses) <= allowed,
+              f"11d {o}(QR): misses within the allowed {sorted(allowed)}")
+        if o == "Dogleg":
+            check(("MGH10", 0) not in misses, "11d Dogleg(QR): the MGH10 s0 rescue holds")
+    print(f"  scoreboard: {secs:.2f} s wall [{smi}]")
+
+    d = nist.DATASETS["Lanczos3"]
+    sol = np.asarray(d["solution"])
+    xl = torch.tensor(d["x"], dtype=torch.float64, device=dev)
+    yl = torch.tensor(d["y"], dtype=torch.float64, device=dev)
+    r = lt.curve_fit(exp_sum_separable(3), xl, yl, "auto", separable=True)
+    err = float(np.abs(r.minimizer - sol).max())
+    print(f"== phase 11d: start-free Lanczos3: converged {r.converged}, iterations "
+          f"{r.iterations}, max |x - certified| {err:.3e}")
+    check(r.converged and err <= 1e-3, "11d: start-free Lanczos3 within 1e-3 of the certified solution")
+
+    d = nist.DATASETS["Misra1b"]
+    xm = torch.tensor(d["x"], dtype=torch.float64, device=dev)
+    ym = torch.tensor(d["y"], dtype=torch.float64, device=dev)
+    w = 1.0 / torch.sqrt(ym)
+    r = lt.curve_fit("Misra1b", xm, ym, d["starts"][1], weights=w,
+                     optimizer=lt.LevenbergMarquardt(lt.QR()))
+    cov = covariance(r)
+    J = r.jacobian.astype(np.float64)
+    ref = r.ssr / (J.shape[0] - J.shape[1]) * np.linalg.inv(J.T @ J)
+    cov_err = float(np.abs(cov - ref).max() / np.abs(ref).max())
+    print(f"== phase 11d: weighted curve_fit('Misra1b'): converged {r.converged}, minimizer "
+          f"{r.minimizer.tolist()}, covariance against numpy float64 from the same J: max "
+          f"relative difference {cov_err:.3e}")
+    check(r.converged and cov_err <= 1e-10, "11d: weighted NIST fit converged, covariance within 1e-10")
+
+    both = (raw32["converged"] & raw64["converged"]).nonzero()[:, 0]
+    i = int(both[0])
+    x64 = torch.tensor(x, device=dev)
+    y64 = torch.tensor(Y_np[i], device=dev)
+
+    def f64(b):
+        return y64 - (b[0] * torch.exp(-b[1] * x64) + b[2] * torch.exp(-b[3] * x64))
+
+    rp = lt.polish(f64, raw32["minimizer"][i])
+    target = raw64["minimizer"][i].double().cpu().numpy()
+    d_pol = float(np.max(np.abs(rp.minimizer - target) / np.abs(target)))
+    print(f"== phase 11d: polish of 11a's float32 fit {i} to float64: converged {rp.converged}, "
+          f"iterations {rp.iterations}, max relative difference from the float64 fit {d_pol:.3e}")
+    check(rp.converged and d_pol <= 1e-10, "11d: polished fit within 1e-10 of the float64 fit")
+
+
+def phase_curve_fitting(dev, smi):
+    """Phase 11: start-free batches, robust fits and single fits."""
+    t0 = time.perf_counter()
+    x, Y_np, raw32, raw64 = phase_start_free(dev, smi)
+    phase_robust(dev, smi)
+    phase_single_fits(dev, smi, x, Y_np, raw32, raw64)
+    print(f"== phase 11 took {time.perf_counter() - t0:.2f} s")
 
 
 if __name__ == "__main__":

@@ -2,22 +2,26 @@
 leastsquaresoptim_jl_tpu for NVIDIA Hopper GPUs.
 
 It imports torch and never jax. Modules keep the JAX package's names and
-paths, so each counterpart is easy to find. Ported so far: the batched
-VarPro curve-fit path (``curve_fit_batch``, bounded or not) with the fused
-p = 1 VarPro LM kernel and the Gram kernel, both written by hand in CUDA
-C++ for sm_90a; batched LM and Dogleg with box bounds (``solve_batch``)
-and multi-start solves (``optimize_multistart``); the single-fit dense
-path (``solve`` / ``optimize``, LM and Dogleg over QR and Cholesky,
-bounds, geodesic acceleration); the matrix-free path
-(``matrix_free_problem``, LSMR over Jacobian operators, the row-sharded
-``parallel.solve_sharded``); and the reference's test problems
+paths, so each counterpart is easy to find. Ported so far: curve fitting
+(``curve_fit`` and the batched ``curve_fit_batch``: the CURVES zoo,
+variable projection at any number of linear coefficients, ``p0="auto"``,
+robust losses with ``robustify`` and IRLS, bounds) with the fused p = 1
+VarPro LM kernel and the Gram kernel, both written by hand in CUDA C++ for
+sm_90a; batched LM and Dogleg with box bounds (``solve_batch``) and
+multi-start solves (``optimize_multistart``); the single-fit dense path
+(``solve`` / ``optimize``, LM and Dogleg over QR and Cholesky, bounds,
+geodesic acceleration, robust losses, the float64 ``polish``); the
+matrix-free path (``matrix_free_problem``, LSMR over Jacobian operators,
+the row-sharded ``parallel.solve_sharded``); post-fit statistics
+(``utils.covariance``); and the reference's test problems
 (``models.minpack``, ``models.nist``).
 """
 
-from . import config, parallel
-from .api import optimize, optimize_problem, solve
+from . import config, parallel, utils
+from .api import optimize, optimize_problem, polish, solve
 from .batch import solve_batch
-from .models import curve_fit_batch
+from .loss import LOSSES, robustify
+from .models import curve_fit, curve_fit_batch
 from .multistart import best_of_raw, latin_hypercube_starts, optimize_multistart
 from .optimizer.base import Dogleg, LevenbergMarquardt
 from .optimizer.common import Options
@@ -30,10 +34,11 @@ from .result import IsFiniteError, LeastSquaresResult
 from .solver.base import LSMR, QR, BlockCholesky, Cholesky
 
 __all__ = [
-    "config", "parallel", "solve", "optimize", "optimize_problem",
-    "solve_batch", "curve_fit_batch", "optimize_multistart",
-    "latin_hypercube_starts", "best_of_raw", "Dogleg", "LevenbergMarquardt",
-    "Options", "LeastSquaresProblem", "least_squares_problem",
+    "config", "parallel", "utils", "solve", "optimize", "optimize_problem",
+    "polish", "solve_batch", "curve_fit", "curve_fit_batch", "LOSSES",
+    "robustify", "optimize_multistart", "latin_hypercube_starts",
+    "best_of_raw", "Dogleg", "LevenbergMarquardt", "Options",
+    "LeastSquaresProblem", "least_squares_problem",
     "matrix_free_problem", "LeastSquaresResult", "IsFiniteError", "LSMR",
     "QR", "Cholesky", "BlockCholesky",
 ]

@@ -15,8 +15,8 @@ src/types.jl:161-209):
 The JAX package caches problems and their compiled solves across
 ``optimize`` calls (its problem cache and per-problem jit cache), because
 a rebuilt problem would recompile. PyTorch runs eagerly and compiles
-nothing, so that cache has no counterpart here. Robust losses, pytree
-parameters and ``polish`` are not ported yet.
+nothing, so that cache has no counterpart here. Pytree parameters are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from .optimizer.common import Options, resolve_tolerances, validate_bounds
 from .problem import LeastSquaresProblem, least_squares_problem
 from .result import LeastSquaresResult, result_from_raw
 
-__all__ = ["solve", "optimize", "optimize_problem"]
+__all__ = ["solve", "optimize", "optimize_problem", "polish"]
 
 
 def solve(
@@ -165,6 +165,7 @@ def optimize(
     output_length: Optional[int] = None,
     materialize_jacobian: bool = True,
     loss="linear",
+    f_scale: float = 1.0,
     device=None,
     **kwargs,
 ) -> LeastSquaresResult:
@@ -173,13 +174,47 @@ def optimize(
     defaults follow the reference: a dense Jacobian gets ``Dogleg(QR())``.
     A tensor ``x0`` keeps its device; numpy or list ``x0`` goes to
     the current CUDA device or to ``device``.
+
+    ``loss``/``f_scale`` select a robust loss (loss.py): the objective
+    becomes sum(f_scale^2 rho((f_i/f_scale)^2)) and the reported ssr is
+    that robust value. A user ``g`` is the Jacobian of the raw residual and
+    cannot be combined with a non-linear loss.
+
+    Every call builds its problem anew: the JAX package's problem cache
+    exists so that a repeated call does not recompile, and PyTorch
+    compiles nothing.
     """
     if loss != "linear":
-        raise NotImplementedError(
-            f"loss={loss!r}: robust losses are not ported yet; use 'linear'"
-        )
+        if g is not None:
+            raise ValueError(
+                "a user Jacobian g applies to the raw residual; robust "
+                "losses differentiate through the loss transform — drop "
+                "g or use loss='linear'"
+            )
+        from .loss import robustify
+
+        f = robustify(f, loss, f_scale)
     problem = least_squares_problem(
         f=f, x=x0, g=g, output_length=output_length, autodiff=autodiff,
         materialize_jacobian=materialize_jacobian, device=device,
     )
     return optimize_problem(problem, optimizer, **kwargs)
+
+
+def polish(f, x, optimizer=None, **kwargs) -> LeastSquaresResult:
+    """Refine a minimizer in float64: the mixed-precision finish.
+
+    Run the bulk solve in float32, then hand its minimizer to a short
+    float64 refinement that starts at an already converged point. ``x`` is
+    cast to float64 on its own device (numpy or list ``x`` goes where
+    ``optimize`` sends it). ``f`` must compute in float64 when given
+    float64 inputs: data closed over in float32 carries only float32
+    information. Accepts every ``optimize`` keyword.
+    """
+    if isinstance(x, torch.Tensor):
+        x64 = x.detach().to(torch.float64)
+    else:
+        import numpy as np
+
+        x64 = np.asarray(x, np.float64)
+    return optimize(f, x64, optimizer, **kwargs)

@@ -147,8 +147,13 @@ def test_bounds_of_the_wrong_length_raise():
 def test_contract_errors():
     with pytest.raises(ValueError, match="rank_policy"):
         lt.QR(rank_policy="pivot")
-    with pytest.raises(NotImplementedError, match="robust losses"):
-        lt.optimize(rosenbrock_t, torch.zeros(2), loss="huber")
+    # Robust losses were a later slice once: they run, and a user Jacobian
+    # with a non-linear loss raises.
+    r = lt.optimize(rosenbrock_t, torch.zeros(2, dtype=torch.float64), loss="huber")
+    assert r.converged
+    with pytest.raises(ValueError, match="user Jacobian"):
+        lt.optimize(rosenbrock_t, torch.zeros(2), loss="huber",
+                    g=lambda x: torch.zeros(2, 2))
     with pytest.raises(NotImplementedError, match="BlockCholesky"):
         lt.optimize(rosenbrock_t, torch.zeros(2),
                     lt.LevenbergMarquardt(lt.BlockCholesky()))

@@ -132,10 +132,16 @@ def test_contract_errors():
     with pytest.raises(ValueError, match="uniformly spaced"):
         lt.curve_fit_batch("exp_saturation", bad, Yt, Pt, gridded=True,
                            separable=True)
-    with pytest.raises(NotImplementedError):
-        lt.curve_fit_batch("exp_saturation", x, Yt, Pt, loss="huber")
-    with pytest.raises(NotImplementedError):
-        lt.curve_fit_batch("exp_saturation", x, Yt, "auto")
+    # Robust losses and p0="auto" were later slices once; both run now.
+    r = lt.curve_fit_batch("exp_saturation", x, Yt, Pt, loss="huber")
+    assert r["converged"].all()
+    r = lt.curve_fit_batch("exp_saturation", x, Yt, "auto")
+    assert r["converged"].all()
+    with pytest.raises(ValueError, match="irls_iterations"):
+        lt.curve_fit_batch("exp_saturation", x, Yt, Pt, separable=True,
+                           loss="huber", irls_iterations=0)
+    with pytest.raises(ValueError, match="p0"):
+        lt.curve_fit_batch("exp_saturation", x, Yt, "bogus")
     with pytest.raises(NotImplementedError):
         lt.curve_fit_batch("exp_saturation", x, Yt, Pt,
                            optimizer=lt.LevenbergMarquardt(lt.Cholesky(), geodesic=True))
@@ -162,7 +168,9 @@ def test_port_imports_no_jax():
         "import leastsquaresoptim_jl_torch.models.nist\n"
         "import leastsquaresoptim_jl_torch.models.minpack\n"
         "import leastsquaresoptim_jl_torch.multistart\n"
-        "print('jax' in sys.modules)\n"
+        "import leastsquaresoptim_jl_torch.loss, leastsquaresoptim_jl_torch.utils\n"
+        "import leastsquaresoptim_jl_torch.models.init\n"
+        "print('jax' in sys.modules or 'leastsquaresoptim_jl_tpu' in sys.modules)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

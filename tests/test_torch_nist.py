@@ -69,8 +69,12 @@ def test_power_derivative_at_zero_matches_jax():
 
 
 def test_nist_separable_waits():
-    with pytest.raises(NotImplementedError, match="NIST_SEPARABLE"):
-        tn.NIST_SEPARABLE
+    """It waited once: NIST_SEPARABLE is ported, the same 14 structures as
+    the JAX package's (tests/test_torch_nist_varpro.py holds them to it)."""
+    assert set(tn.NIST_SEPARABLE) == set(jn.NIST_SEPARABLE)
+    assert len(tn.NIST_SEPARABLE) == 14
+    for name, sm in tn.NIST_SEPARABLE.items():
+        assert (sm.lin, sm.nl) == (jn.NIST_SEPARABLE[name].lin, jn.NIST_SEPARABLE[name].nl)
 
 
 def _solve_all(optimizer, name):

@@ -75,5 +75,12 @@ def test_weighted_assemble_matches_jax():
 
 
 def test_p_greater_than_one_is_a_later_slice():
-    with pytest.raises(NotImplementedError):
-        ts._coefficients_and_residual(torch.ones(8, 2), torch.ones(8))
+    """It was a later slice once: the p > 1 solve runs now, and on a basis
+    whose columns are equal it takes the ridged route to the JAX package's
+    residual (tests/test_torch_separable_p2.py holds the rest)."""
+    P, y = np.ones((8, 2)), np.linspace(0.0, 1.0, 8)
+    ct, rt = ts._coefficients_and_residual(torch.tensor(P), torch.tensor(y))
+    cj, rj = js._coefficients_and_residual(jnp.asarray(P), jnp.asarray(y))
+    assert ct.shape == (2,) and np.isfinite(ct.numpy()).all()
+    np.testing.assert_allclose(float(ct.sum()), float(cj.sum()), rtol=1e-12)
+    np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=1e-12, atol=1e-15)
