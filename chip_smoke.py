@@ -2,8 +2,10 @@
 the Gram kernel and the row-sharded Gram, the single-fit dense path, the
 matrix-free path (LSMR over Jacobian operators) at BASELINE.json config
 #4's size, the reference's test problems (MINPACK, NIST StRD) with
-batched Dogleg, bounded batches and multistart, and the rest of curve
-fitting (start-free multi-term fits, robust losses, single fits).
+batched Dogleg, bounded batches and multistart, the rest of curve
+fitting (start-free multi-term fits, robust losses, single fits), and the
+structured-Jacobian path (BlockCholesky, sparse Jacobians by colored AD)
+at configs #4 and #5's size.
 
     python3 chip_smoke.py
 
@@ -188,6 +190,41 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    1e-3 of the certified solution, a weighted curve_fit of Misra1b and its
    covariance against numpy from the same J (1e-10), and polish of an 11a
    float32 fit within 1e-10 of the float64 fit.
+
+12. The structured-Jacobian path, no kernel of its own (both kernels'
+   counters are reset before 12a and must read 0 after 12e; float32
+   unless stated; times on the host clock ending in a sync, after a
+   warm-up).
+   (a) The block-tridiagonal solves alone on random SPD systems (blocks as
+   tests/test_block_cholesky.py makes them, numpy default_rng): nb = 50000
+   at s = 2 by the SoA cyclic reduction (solve_block_tridiag_spd_soa, the
+   route of config #4's Gram), nb = 4096 at s = 4 by the general cyclic
+   reduction, nb = 256 at s = 3 by the blocked Cholesky ("scan"), in
+   float64 and float32: relative residual ||A x - b|| / ||b|| (A applied
+   blockwise in float64) below 1e-10 and 1e-4; ms per solve (CUDA events)
+   and one profiler pass (CUDA kernels per solve); and at nb = 1024 the
+   card's float64 answer within 1e-12 of the CPU's.
+   (b) Config #4 (blocks = 10, m = 10^6, n = 10^5, closed-form column
+   norms) from phase 9c's oscillatory start, default tolerances, to
+   convergence by LM(BlockCholesky(2)) and by LM(LSMR(maxiter=60)):
+   converged, LM iterations, matvecs, ssr, seconds (best and median of
+   3), peak allocated memory, one profiler pass (CUDA kernels per LM
+   iteration, busy share); the two minimizers within 1e-3.
+   (c) The BlockCholesky route at blocks = 100 (m = 10^7): converged and
+   finite, seconds, peak allocated memory under 4 GB.
+   (d) Config #4 with a sparse J: sparse_jacobian over the residual's
+   static pattern (row (b, i) touches columns i-1, i, i+1; nse about
+   3*10^6), set-up and coloring seconds, 3 colors; J v against
+   torch.func.jvp for 4 random v within 1e-5 relative; LM(LSMR(maxiter=60))
+   for 10 iterations at tolerances 0 (iterations/s beside phase 9b's
+   matrix-free route with closed-form column norms), then to convergence
+   from (b)'s start: converged, within 1e-3 of (b)'s BlockCholesky
+   minimizer, the result's J sparse with its pattern.
+   (e) B = 2048 broyden_tridiagonal(256) fits (starts 0.8-1.2 x0),
+   matrix-free, solve_batch(LM(BlockCholesky(2))): batch seconds (best and
+   median of 3), fits/s, lockstep iterations, one profiler pass; every fit
+   converged; the first 64 fits in float64 on the card within 1e-10 of the
+   CPU's.
 
 The second-to-last line is a JSON object describing each kernel (times
 from phase 5 for kernel_varpro, at the lanes the rule picks, and from
@@ -407,6 +444,7 @@ def main():
     phase_matrix_free(dev, smi)
     phase_reference_problems(dev, smi)
     phase_curve_fitting(dev, smi)
+    phase_structured(dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "kernel_varpro",
@@ -1201,6 +1239,7 @@ def phase_config4(dev, smi):
         print(f"  {its} LM iterations, {mvps} matvecs, {lsmr_its} LSMR iterations, "
               f"inner_istop {istop}, ssr {ssr0!r} -> {ssr!r}; peak allocated "
               f"{peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB held before) [{smi}]")
+        CONFIG4_RATES[label] = its / best
         print(f"  LM iterations/s {its / best:.3f} (best of {reps}), "
               f"{its / med:.3f} (median); LSMR iterations/s {lsmr_its / best:.1f} "
               f"(best), {lsmr_its / med:.1f} (median); solve {best:.4f} s best, "
@@ -2047,6 +2086,268 @@ def phase_curve_fitting(dev, smi):
     phase_robust(dev, smi)
     phase_single_fits(dev, smi, x, Y_np, raw32, raw64)
     print(f"== phase 11 took {time.perf_counter() - t0:.2f} s")
+
+
+# -- phase 12: the structured-Jacobian path ----------------------------------
+
+CONFIG4_RATES = {}  # phase 9b's LM iterations/s (best of 3) by column-norm route
+# 12a: (blocks, block size, route). "soa" is solve_block_tridiag_spd_soa,
+# the route BlockCholesky(2) takes at config #4's Gram (nb = 50000).
+BLOCK_ROUTES = [(50_000, 2, "soa"), (4096, 4, "cr"), (256, 3, "scan")]
+BLOCK_LIMITS = {torch.float64: 1e-10, torch.float32: 1e-4}
+BATCH_BC, N_BC = 2048, 256  # 12e
+
+
+def block_system(nb, s, seed):
+    """A random SPD block-tridiagonal system in float64 numpy, blocks made
+    as tests/test_block_cholesky.py makes them: Q Q' + 3 s I on the
+    diagonal, 0.3 N(0, 1) couplings. Returns (D, L, rhs)."""
+    rng = np.random.default_rng(seed)
+    Q = rng.standard_normal((nb, s, s))
+    D = Q @ Q.transpose(0, 2, 1) + 3.0 * s * np.eye(s)
+    L = 0.3 * rng.standard_normal((nb - 1, s, s))
+    return D, L, rng.standard_normal(nb * s)
+
+
+def block_apply(D, L, x):
+    """A x for the block-tridiagonal (D, L), blockwise in float64."""
+    D, L = D.double(), L.double()
+    nb, s = D.shape[0], D.shape[-1]
+    xb = x.double().reshape(nb, s, 1)
+    y = D @ xb
+    y[1:] += L @ xb[:-1]
+    y[:-1] += L.mT @ xb[1:]
+    return y.reshape(-1)
+
+
+def block_solve(route, D, L, rhs):
+    from leastsquaresoptim_jl_torch.ops import block_tridiag as bt
+
+    if route == "soa":
+        nb, s = D.shape[0], D.shape[-1]
+        comp = lambda M: [[M[:, i, j].contiguous() for j in range(s)]  # noqa: E731
+                          for i in range(s)]
+        return bt.solve_block_tridiag_spd_soa(comp(D), comp(L), rhs, nb, s)
+    return bt.solve_block_tridiag_spd(D, L, rhs, method=route)
+
+
+def phase_block_solves(dev, smi):
+    """12a: the three block solves alone."""
+    print("== phase 12a: block-tridiagonal solves on random SPD systems")
+    for nb, s, route in BLOCK_ROUTES:
+        D_np, L_np, r_np = block_system(nb, s, seed=nb + s)
+        for dt in (torch.float64, torch.float32):
+            D, L, rhs = (torch.tensor(a, dtype=dt, device=dev) for a in (D_np, L_np, r_np))
+            x = block_solve(route, D, L, rhs)
+            res = (torch.linalg.vector_norm(block_apply(D, L, x) - rhs.double())
+                   / torch.linalg.vector_norm(rhs.double())).item()
+            ms = loop_ms(lambda: block_solve(route, D, L, rhs), n=10, warmup=2)
+            print(f"  nb={nb}, s={s}, {route}, {dt}: relative residual {res:.3e}, "
+                  f"{ms:.3f} ms per solve (mean of 10, CUDA events) [{smi}]")
+            check(res < BLOCK_LIMITS[dt] and bool(torch.isfinite(x).all()),
+                  f"12a {route} nb={nb} {dt}: relative residual below {BLOCK_LIMITS[dt]:g}")
+            if dt == torch.float32:
+                kernels = profile_solve(lambda: block_solve(route, D, L, rhs),
+                                        f"12a {route} nb={nb} float32 solve", smi)
+                print(f"  12a {route} nb={nb}: {kernels} CUDA kernels per solve")
+        D_np, L_np, r_np = block_system(1024, s, seed=7 + s)
+        xs = [block_solve(route, *(torch.tensor(a, dtype=torch.float64, device=d)
+                                   for a in (D_np, L_np, r_np))).cpu()
+              for d in (dev, torch.device("cpu"))]
+        diff = ((xs[0] - xs[1]).abs().max() / xs[1].abs().max()).item()
+        print(f"  nb=1024, s={s}, {route}, float64: card against CPU {diff:.3e} (max "
+              "difference over max |x|)")
+        check(diff <= 1e-12, f"12a {route}: the card equals the CPU within 1e-12 at nb=1024")
+
+
+def converge(problem, optimizer, x0, label, smi, reps=3):
+    """Solve ``problem`` to convergence from ``x0`` (default tolerances):
+    times after a warm-up (best and median of ``reps``), peak allocated
+    memory, and one profiler pass. Returns the last raw result."""
+    from leastsquaresoptim_jl_torch import Options, solve
+
+    opts = Options(iterations=100)
+
+    def run():
+        return solve(problem, optimizer, options=opts, x0=x0)
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    timed = [sync_time(run) for _ in range(reps)]
+    peak = torch.cuda.max_memory_allocated()
+    ts = [t for t, _ in timed]
+    raw = timed[-1][1]
+    its, mvps = int(raw["iterations"]), int(raw["mul_calls"])
+    print(f"  {label}: converged {bool(raw['converged'])}, {its} LM iterations, "
+          f"{mvps} matvecs, ssr {float(raw['ssr'])!r}, {min(ts):.4f} s best, "
+          f"{float(np.median(ts)):.4f} s median of {reps}; peak allocated "
+          f"{peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB held before) [{smi}]")
+    kernels = profile_solve(run, label, smi)
+    if kernels is not None:
+        print(f"  {label}: {kernels / max(its, 1):.1f} CUDA kernels per LM iteration")
+    check(bool(raw["converged"]) and bool(torch.isfinite(raw["minimizer"]).all()),
+          f"{label}: converged to a finite minimizer")
+    return raw, peak
+
+
+def oscillatory_start(problem, dev):
+    """Phase 9c's start: x0 + 0.1 (-1)^i."""
+    sign = torch.where(torch.arange(problem.n, device=dev) % 2 == 0, 1.0, -1.0)
+    return problem.x0 + 0.1 * sign
+
+
+def phase_config4_block_cholesky(dev, smi):
+    """12b and 12c: config #4 by BlockCholesky(2) against LSMR, and m = 10^7."""
+    from leastsquaresoptim_jl_torch import LSMR, BlockCholesky, LevenbergMarquardt
+
+    problem, _ = config4_problem(10, dev, True)
+    x0 = oscillatory_start(problem, dev)
+    print(f"== phase 12b: config #4, m={problem.m}, n={problem.n}, float32, closed-form "
+          "colnorms_fn, to convergence from phase 9c's start")
+    raw_bc, _ = converge(problem, LevenbergMarquardt(BlockCholesky(2)), x0,
+                         "12b LM(BlockCholesky(2))", smi)
+    raw_ls, _ = converge(problem, LevenbergMarquardt(LSMR(maxiter=60)), x0,
+                         "12b LM(LSMR(maxiter=60))", smi)
+    diff = (raw_bc["minimizer"] - raw_ls["minimizer"]).abs().max().item()
+    print(f"  minimizers differ by {diff:.3e} at most")
+    check(diff <= 1e-3, "12b: BlockCholesky's and LSMR's minimizers agree within 1e-3")
+
+    problem10, _ = config4_problem(100, dev, True)
+    print(f"== phase 12c: m={problem10.m}, n={problem10.n}, float32, LM(BlockCholesky(2)) "
+          "to convergence from the oscillatory start")
+    _, peak = converge(problem10, LevenbergMarquardt(BlockCholesky(2)),
+                       oscillatory_start(problem10, dev), "12c LM(BlockCholesky(2))",
+                       smi, reps=1)
+    check(peak < 4e9, "12c: peak allocated memory under 4 GB")
+    return raw_bc["minimizer"]
+
+
+def banded_pattern(blocks, n):
+    """config #4's static pattern: row (b, i) touches columns i-1, i, i+1."""
+    i = np.arange(n)
+    parts = []
+    for d in (-1, 0, 1):
+        j = i + d
+        ok = (j >= 0) & (j < n)
+        for b in range(blocks):
+            parts.append(np.stack([b * n + i[ok], j[ok]], axis=1))
+    return np.concatenate(parts)
+
+
+def phase_config4_sparse(dev, smi, x_bc):
+    """12d: config #4 with a sparse J by colored AD, LM(LSMR)."""
+    from leastsquaresoptim_jl_torch import (
+        LSMR, LevenbergMarquardt, Options, least_squares_problem, solve, sparse_jacobian)
+    from leastsquaresoptim_jl_torch.ops.sparse import color_columns
+
+    blocks, n = 10, CONFIG4_N
+    residual_fn, _, x0 = banded_problem(blocks, n, torch.float32, dev)
+    m = blocks * n
+    print(f"== phase 12d: config #4 with a sparse J (colored AD), m={m}, n={n}, float32")
+    t0 = time.perf_counter()
+    pattern = banded_pattern(blocks, n)
+    t1 = time.perf_counter()
+    colors = color_columns(pattern, n)
+    t2 = time.perf_counter()
+    jac = sparse_jacobian(residual_fn, pattern, m, n)
+    problem = least_squares_problem(residual_fn, x0, output_length=m, g=jac)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"  pattern {t1 - t0:.3f} s, coloring alone {t2 - t1:.3f} s, sparse_jacobian "
+          f"and the problem (coloring again, one J at x0) {t3 - t2:.3f} s; nse "
+          f"{len(pattern)}, ncolors {jac.ncolors}, colors 0..{int(colors.max())}")
+    check(jac.ncolors == 3 and problem.jacobian_is_sparse, "12d: 3 colors, a sparse problem")
+    xs = oscillatory_start(problem, dev)
+    J = jac(xs)
+    rng = np.random.default_rng(12)
+    worst = 0.0
+    for _ in range(4):
+        v = torch.tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+        ref = torch.func.jvp(residual_fn, (xs,), (v,))[1]
+        worst = max(worst, (torch.linalg.vector_norm(torch.mv(J, v) - ref)
+                            / torch.linalg.vector_norm(ref)).item())
+    print(f"  J v against torch.func.jvp, 4 random v: largest relative difference {worst:.3e}")
+    check(worst <= 1e-5, "12d: J v equals the JVP within 1e-5 relative")
+
+    optimizer = LevenbergMarquardt(LSMR(maxiter=60))
+    opts = Options(iterations=10, x_tol=0.0, f_tol=0.0, g_tol=0.0)
+
+    def run10():
+        return solve(problem, optimizer, options=opts)
+
+    run10()  # warm-up
+    ts = [sync_time(run10)[0] for _ in range(3)]
+    rate = CONFIG4_RATES.get("closed-form colnorms_fn")
+    print(f"  10 LM(LSMR(maxiter=60)) iterations: {10 / min(ts):.3f} LM iterations/s "
+          f"(best of 3), {10 / float(np.median(ts)):.3f} (median); phase 9b's "
+          f"matrix-free route with closed-form column norms in this run: "
+          f"{'not run' if rate is None else f'{rate:.3f}'} [{smi}]")
+    raw, peak = converge(problem, optimizer, xs, "12d sparse LM(LSMR(maxiter=60))", smi)
+    diff = (raw["minimizer"] - x_bc).abs().max().item()
+    print(f"  the sparse route's minimizer differs from 12b's BlockCholesky by {diff:.3e}")
+    check(diff <= 1e-3, "12d: minimizer within 1e-3 of 12b's")
+    check(raw["jacobian"].layout == torch.sparse_coo
+          and raw["jacobian"]._nnz() == len(pattern), "12d: the result's J keeps its pattern")
+
+
+def phase_batched_block_cholesky(dev, smi):
+    """12e: B = 2048 matrix-free broyden_tridiagonal fits by solve_batch."""
+    from leastsquaresoptim_jl_torch import BlockCholesky, LevenbergMarquardt, solve_batch
+    from leastsquaresoptim_jl_torch.models.minpack import broyden_tridiagonal
+
+    B, n = BATCH_BC, N_BC
+    print(f"== phase 12e: solve_batch, B={B} broyden_tridiagonal({n}) fits, matrix-free, "
+          "LM(BlockCholesky(2)), float32")
+    scale = np.linspace(0.8, 1.2, B)[:, None]
+
+    def run(dt, device, count=B):
+        _, f, x0, _ = broyden_tridiagonal(n, dtype=dt, device=device)
+        xb = x0[None, :] * torch.tensor(scale[:count], dtype=dt, device=device)
+        return solve_batch(f, xb, None, LevenbergMarquardt(BlockCholesky(2)),
+                           output_length=n, materialize_jacobian=False)
+
+    run(torch.float32, dev)  # warm-up
+    timed = [sync_time(lambda: run(torch.float32, dev)) for _ in range(3)]
+    ts = [t for t, _ in timed]
+    raw = timed[-1][1]
+    conv = raw["converged"].double().mean().item()
+    print(f"  batch {min(ts):.4f} s best, {float(np.median(ts)):.4f} s median of 3, "
+          f"{B / min(ts):.1f} fits/s (best), lockstep iterations "
+          f"{int(raw['iterations'].max())}, converged {conv:.6f}, ssr max "
+          f"{raw['ssr'].max().item():.3e} [{smi}]")
+    kernels = profile_solve(lambda: run(torch.float32, dev), "12e batch", smi)
+    if kernels is not None:
+        print(f"  12e: {kernels / int(raw['iterations'].max()):.1f} CUDA kernels per "
+              "lockstep iteration")
+    check(conv == 1.0, "12e: every fit converged")
+    card = run(torch.float64, dev, 64)
+    cpu = run(torch.float64, torch.device("cpu"), 64)
+    diff = (card["minimizer"].cpu() - cpu["minimizer"]).abs().max().item()
+    same = bool((card["iterations"].cpu() == cpu["iterations"]).all())
+    print(f"  first 64 fits in float64: card against CPU {diff:.3e}, iterations equal "
+          f"{same}")
+    check(diff <= 1e-10, "12e: the card equals the CPU within 1e-10 on 64 float64 fits")
+
+
+def phase_structured(dev, smi):
+    """Phase 12: BlockCholesky, sparse J and the batched matrix-free solve;
+    no hand-written kernel may launch in it."""
+    from leastsquaresoptim_jl_torch.ops import gram
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    t0 = time.perf_counter()
+    kv.launches = gram.launches = 0
+    phase_block_solves(dev, smi)
+    x_bc = phase_config4_block_cholesky(dev, smi)
+    phase_config4_sparse(dev, smi, x_bc)
+    phase_batched_block_cholesky(dev, smi)
+    print(f"  launches on the structured-Jacobian path (12a-12e): kernel_varpro "
+          f"{kv.launches}, gram {gram.launches}")
+    check(kv.launches == 0 and gram.launches == 0,
+          "phase 12 launches neither hand-written kernel (none lies on it)")
+    print(f"== phase 12 took {time.perf_counter() - t0:.2f} s")
 
 
 if __name__ == "__main__":

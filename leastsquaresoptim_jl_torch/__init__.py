@@ -12,7 +12,10 @@ multi-start solves (``optimize_multistart``); the single-fit dense path
 (``solve`` / ``optimize``, LM and Dogleg over QR and Cholesky, bounds,
 geodesic acceleration, robust losses, the float64 ``polish``); the
 matrix-free path (``matrix_free_problem``, LSMR over Jacobian operators,
-the row-sharded ``parallel.solve_sharded``); post-fit statistics
+the row-sharded ``parallel.solve_sharded``); the structured-Jacobian
+path (``BlockCholesky``, block-tridiagonal Grams from probe matvecs, on
+one fit or a batch of matrix-free fits; sparse Jacobians from
+``sparse_jacobian``'s colored AD or a user's sparse ``g``); post-fit statistics
 (``utils.covariance``); and the reference's test problems
 (``models.minpack``, ``models.nist``).
 """
@@ -25,6 +28,7 @@ from .models import curve_fit, curve_fit_batch
 from .multistart import best_of_raw, latin_hypercube_starts, optimize_multistart
 from .optimizer.base import Dogleg, LevenbergMarquardt
 from .optimizer.common import Options
+from .ops.sparse import sparse_jacobian
 from .problem import (
     LeastSquaresProblem,
     least_squares_problem,
@@ -40,5 +44,5 @@ __all__ = [
     "best_of_raw", "Dogleg", "LevenbergMarquardt", "Options",
     "LeastSquaresProblem", "least_squares_problem",
     "matrix_free_problem", "LeastSquaresResult", "IsFiniteError", "LSMR",
-    "QR", "Cholesky", "BlockCholesky",
+    "QR", "Cholesky", "BlockCholesky", "sparse_jacobian",
 ]

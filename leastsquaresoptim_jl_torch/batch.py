@@ -6,7 +6,9 @@ over the batch (with per-leaf data axes, ``None`` for shared leaves), and
 the LM or Dogleg loop pieces then step the whole batch at once. A fit that
 is done is frozen: its carry leaves keep their values while the others
 move on. Box bounds are shared by every fit; the bounded step pins each
-fit on its own (``torch.where`` only, optimizer/common.py).
+fit on its own (``torch.where`` only, optimizer/common.py). A matrix-free
+batch (``materialize_jacobian=False``) runs with BlockCholesky; batched
+LSMR is not ported.
 """
 
 from __future__ import annotations

@@ -5,8 +5,10 @@ PyTorch counterpart of ``leastsquaresoptim_jl_tpu/ops/operators.py``
 README.md:37-47). An operator is a small record of closures built at each
 fresh linearization point:
 
-  * materialized: from the (m, n) Jacobian J (leading batch axes allowed);
-  * matrix-free: from the linearization point x_lin. ``J v`` is one
+  * materialized: from the (m, n) Jacobian J, dense (leading batch axes
+    allowed) or sparse COO (ops/sparse.py);
+  * matrix-free: from the linearization point x_lin (leading batch axes
+    allowed: a batch of independent fits). ``J v`` is one
     ``torch.func.jvp`` of the residual per product; ``J'u`` is the closure
     of one ``torch.func.vjp`` taken at x_lin when the operator is built
     (PyTorch has no transpose of a linear function, so the reverse pass
@@ -21,7 +23,9 @@ a ``torch.Generator`` on the data's device, seeded from a salt and the bits
 of x_lin, so that one point always draws the same probes and two points
 draw different ones. Reading that seed is one device-to-host read per
 fresh probe set. The recipe is the JAX package's; the random stream is
-not, so estimates agree in distribution only.
+not, so estimates agree in distribution only. A batch hashes its probes
+on the device instead (``_batched_probe_estimate``), so that the card and
+the CPU draw the same ones.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Callable, Optional
 import torch
 
 from .linalg import colsumabs2, row_sum
+from .sparse import colsumabs2_sparse, is_sparse
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,14 +68,23 @@ _BROADCAST_MATVEC_MAX_N = 16
 
 
 def from_matrix(J) -> JacobianOperator:
-    """Operator view of a materialized dense Jacobian (..., m, n); vectors
-    carry the same leading batch axes. Sparse layouts are not ported."""
-    if J.layout != torch.strided:
-        raise NotImplementedError(
-            "sparse Jacobians (the JAX package's BCOO route, ops/sparse.py) "
-            "are not ported yet; return a dense J"
-        )
+    """Operator view of a materialized Jacobian: dense (..., m, n), whose
+    vectors carry the same leading batch axes, or sparse COO (m, n)
+    (ops/sparse.py; one fit). The sparse products keep the stored entries'
+    order: row sums in column order, and J'u through the transposed
+    pattern, coalesced once here, in row order."""
     m, n = J.shape[-2:]
+    if is_sparse(J):
+        J = J.coalesce()
+        Jt = J.t().coalesce()
+        return JacobianOperator(
+            matvec=lambda v: torch.mv(J, v),
+            rmatvec=lambda u: torch.mv(Jt, u),
+            colnorms2=lambda: colsumabs2_sparse(J),
+            m=int(m),
+            n=int(n),
+            J=J,
+        )
     if n <= _BROADCAST_MATVEC_MAX_N:
         matvec = lambda v: torch.sum(J * v.unsqueeze(-2), dim=-1)  # noqa: E731
         rmatvec = lambda u: torch.sum(J * u.unsqueeze(-1), dim=-2)  # noqa: E731
@@ -121,6 +135,7 @@ def _default_colnorms2(jvp_fn, rmatvec, m: int, n: int, dtype, x_lin,
     the exact route) folds a small fresh probe set into the previous outer
     iteration's estimate."""
     finish = (lambda t: t) if reduce is None else reduce
+    batch = tuple(x_lin.shape[:-1])
 
     def _bits_sum():
         # The seed is folded from the linearization point's bits, so the
@@ -145,10 +160,15 @@ def _default_colnorms2(jvp_fn, rmatvec, m: int, n: int, dtype, x_lin,
     if n <= _EXACT_COLNORMS_MAX_N:
         def colnorms2():
             eye = torch.eye(n, dtype=dtype, device=x_lin.device)
-            cols = torch.func.vmap(jvp_fn)(eye)  # (n, m)
-            return row_sum(cols * cols, reduce)
+            eye = eye.reshape((n,) + (1,) * len(batch) + (n,)).expand(
+                (n,) + batch + (n,))
+            cols = torch.func.vmap(jvp_fn)(eye)  # (n, ..., m)
+            return row_sum(cols * cols, reduce).movedim(0, -1)
 
         return colnorms2, None
+
+    if batch:
+        return (lambda: _batched_probe_estimate(rmatvec, m, dtype, x_lin)), None
 
     def colnorms2():
         return _probe_estimate(0, _HUTCHINSON_PROBES, int(_bits_sum()))
@@ -172,6 +192,36 @@ def _default_colnorms2(jvp_fn, rmatvec, m: int, n: int, dtype, x_lin,
     return colnorms2, colnorms2_update
 
 
+def _hash32(v):
+    """An integer hash of int64 values in [0, 2^32), exact in int64
+    arithmetic (every product stays below 2^59), so that the CPU and the
+    card compute the same bits."""
+    for _ in range(2):
+        v = (((v >> 16) ^ v) * 0x45D9F3B) & 0xFFFFFFFF
+    return (v >> 16) ^ v
+
+
+def _batched_probe_estimate(rmatvec, m: int, dtype, x_lin):
+    """Hutchinson estimate of diag(J'J) for each fit of a batch (x_lin
+    (..., n)), from a full set of ``_HUTCHINSON_PROBES`` probes. Each fit's
+    Rademacher signs hash its own seed, folded from the bits of its row of
+    x_lin, with the probe's position: one point always draws the same
+    probes, on the CPU and on the card alike, and no value is read back to
+    the host. (The single-fit estimate's ``torch.Generator`` streams differ
+    between devices.) The batch takes a full probe set at every fresh
+    linearization, as the JAX package's batched solve does."""
+    k = _HUTCHINSON_PROBES
+    batch = tuple(x_lin.shape[:-1])
+    bits = x_lin.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    seed = _hash32(torch.sum(bits & 0xFFFFFFFF, dim=-1) & 0xFFFFFFFF)
+    counter = torch.arange(k * m, device=x_lin.device).reshape(
+        (k,) + (1,) * len(batch) + (m,))
+    h = _hash32((seed.unsqueeze(-1) + counter) & 0xFFFFFFFF)  # (k, ..., m)
+    z = ((h & 1) * 2 - 1).to(dtype)
+    cols = torch.func.vmap(rmatvec)(z)  # (k, ..., n)
+    return torch.mean(cols * cols, dim=0)
+
+
 def from_linearization(
     residual_fn: Callable,
     x_lin: torch.Tensor,
@@ -188,7 +238,7 @@ def from_linearization(
     rows: ``m`` is the global row count, ``J v`` stays local and ``J'u`` is
     completed across the processes.
     """
-    n = int(x_lin.shape[0])
+    n = int(x_lin.shape[-1])
     r_lin, vjp_fn = torch.func.vjp(residual_fn, x_lin)
     m_local = int(r_lin.shape[-1])
 

@@ -193,7 +193,11 @@ def build_eval_schedule(problem, solver_tag, fused) -> EvalSchedule:
         raise ValueError(
             f"unknown fused mode {fused!r}; expected False, True, or 'ssr'"
         )
-    if fused and (not problem.materialize_jacobian or problem.res_jac_fn is None):
+    if fused and (
+        not problem.materialize_jacobian
+        or problem.jacobian_is_sparse
+        or problem.res_jac_fn is None
+    ):
         raise ValueError(
             "fused evaluation requires a dense materialized Jacobian with "
             "a res_jac_fn (least_squares_problem builds one automatically)"
@@ -226,12 +230,15 @@ def build_eval_schedule(problem, solver_tag, fused) -> EvalSchedule:
 def seed_eval(sched: EvalSchedule, problem, x):
     """Initial model evaluation for the loop carry.
 
-    Returns ``(fcur, gram0, grhs0, jstate0)``: gram0/grhs0 are None unless
-    ``fused_gram``; jstate0 is J at x under ``fused_flat`` and else the
-    linearization point x (the Jacobian is recomputed from it, never
-    carried). A row-sharded residual holds this process's rows, so its
-    length is not held to the global ``problem.m``."""
-    gram0 = grhs0 = None
+    Returns ``(fcur, gram0, grhs0, jstate0, jac0)``: gram0/grhs0 are None
+    unless ``fused_gram``; jstate0 is J at x under ``fused_flat`` and else
+    the linearization point x (the Jacobian is recomputed from it, never
+    carried). ``jac0`` is the sparse Jacobian at x for a sparse problem
+    (the JAX package seeds its sparse carry with it, and the first
+    iteration uses it instead of evaluating J again), else None. A
+    row-sharded residual holds this process's rows, so its length is not
+    held to the global ``problem.m``."""
+    gram0 = grhs0 = jac0 = None
     jstate0 = x
     if sched.fused_gram:
         fcur, gram0, grhs0 = sched.res_gram_fn(x)
@@ -239,19 +246,26 @@ def seed_eval(sched: EvalSchedule, problem, x):
         fcur, jstate0 = sched.res_jac_fn(x)
     else:
         fcur = problem.residual_fn(x)
+        if problem.jacobian_is_sparse:
+            jac0 = problem.jac_fn(x)
     if problem.row_reduce is None and fcur.shape[-1] != problem.m:
         raise ValueError(
             f"residual function returns {fcur.shape[-1]} values per fit, "
             f"expected {problem.m}"
         )
-    return fcur, gram0, grhs0, jstate0
+    return fcur, gram0, grhs0, jstate0, jac0
 
 
-def require_single_fit_if_matrix_free(problem, x):
-    """Matrix-free solves take one fit; a batch of them is not ported."""
-    if not problem.materialize_jacobian and x.ndim != 1:
+def require_single_fit_if_matrix_free(problem, x, solver_tag):
+    """A batch of matrix-free fits runs with BlockCholesky only; batched
+    LSMR (a per-fit inner stop in one loop) is not ported."""
+    from ..solver.base import BlockCholesky
+
+    if (not problem.materialize_jacobian and x.ndim != 1
+            and not isinstance(solver_tag, BlockCholesky)):
         raise NotImplementedError(
-            "batched matrix-free solves are not ported yet: a problem with "
-            "materialize_jacobian=False takes one flat x, got shape "
-            f"{tuple(x.shape)}"
+            "batched matrix-free solves with LSMR are not ported yet: a "
+            "problem with materialize_jacobian=False takes one flat x, got "
+            f"shape {tuple(x.shape)}; a batch of them runs with "
+            "BlockCholesky()"
         )

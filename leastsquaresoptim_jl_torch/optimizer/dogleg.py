@@ -33,9 +33,10 @@ with another solver, which carries J from the accepted trial evaluation.
 
 Outside Gram space the block sees the Jacobian as an operator
 (ops/operators.py): column norms, ``J'f``, ``||J dgr||^2`` through one
-matvec, and the solver's Gauss-Newton step. A matrix-free problem (one fit
-only) never forms J, and a row-sharded one completes its sums over rows
-through ``ops/linalg.row_sum``.
+matvec, and the solver's Gauss-Newton step. A matrix-free problem (a batch
+of them with BlockCholesky only) never forms J, and a row-sharded one
+completes its sums over rows through ``ops/linalg.row_sum``. A sparse
+Jacobian evaluated at the start serves the first iteration's block.
 """
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ def loop_pieces(
     carry_fcur, ssr_carry = sched.carry_fcur, sched.ssr_carry
 
     x = problem.x0 if x0 is None else x0
-    require_single_fit_if_matrix_free(problem, x)
+    require_single_fit_if_matrix_free(problem, x, solver_tag)
     dt = x.dtype
     batch_shape = tuple(x.shape[:-1])
     x_tol, f_tol, g_tol = resolve_tolerances(opts, dt)
@@ -116,7 +117,7 @@ def loop_pieces(
     def full(value, dtype):
         return torch.full(batch_shape, value, dtype=dtype, device=x.device)
 
-    fcur, gram0, grhs0, jstate0 = seed_eval(sched, problem, x)
+    fcur, gram0, grhs0, jstate0, jac0 = seed_eval(sched, problem, x)
     if ssr_carry:
         ssr, ssr_lo0 = sumabs2_dd(fcur)
     else:
@@ -153,6 +154,10 @@ def loop_pieces(
     if fused_gram:
         carry["gram"] = gram0
         carry["grhs"] = grhs0
+    if jac0 is not None:
+        # The sparse seed: iteration 1's block uses it (no new carry holds
+        # it after that).
+        carry["jseed"] = jac0
 
     def cond_fn(c):
         return (
@@ -177,7 +182,7 @@ def loop_pieces(
             elif not materialize:
                 op = operators.for_problem(problem, x)
             elif carry_fcur:
-                op = operators.from_matrix(jac_fn(x))
+                op = operators.from_matrix(c["jseed"] if "jseed" in c else jac_fn(x))
             else:
                 fcur, J = res_jac_fn(x)
                 op = operators.from_matrix(J)

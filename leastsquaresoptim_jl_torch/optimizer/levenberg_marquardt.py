@@ -25,15 +25,18 @@ solver carries J. Box bounds clip the step and refine it on the active set
 (common.active_set_refinement).
 
 The inner solve sees the Jacobian as an operator (ops/operators.py). A
-matrix-free problem (``materialize_jacobian=False``, one fit only) never
-forms J: the operator is built at each fresh linearization point and rides
-the carry across rejected steps, together with the raw damping diagonal
-``dtd_raw``; a fresh linearization refreshes that diagonal through the
-operator's ``colnorms2_update`` (a few Hutchinson probes folded into the
-carried estimate) and hands it to the operator, so that the Jacobi
-preconditioner does not probe again. Every sum over residual rows goes
-through ``ops/linalg.row_sum`` with the problem's ``row_reduce``, which a
-row-sharded problem sets to an all-reduce.
+matrix-free problem (``materialize_jacobian=False``; a batch of them with
+BlockCholesky only) never forms J: the operator is built at each fresh
+linearization point and rides the carry across rejected steps, together
+with the raw damping diagonal ``dtd_raw``; a fresh linearization refreshes
+that diagonal through the operator's ``colnorms2_update`` (a few
+Hutchinson probes folded into the carried estimate) and hands it to the
+operator, so that the Jacobi preconditioner does not probe again. A sparse
+Jacobian (ops/sparse.py) is evaluated at the start, and the first
+iteration reuses that linearization, as the JAX package seeds its sparse
+carry. Every sum over residual rows goes through ``ops/linalg.row_sum``
+with the problem's ``row_reduce``, which a row-sharded problem sets to an
+all-reduce.
 
 Geodesic acceleration (``geodesic=True``; Transtrum & Sethna 2012): the
 step gets half the second-order correction ``acc``, which solves the same
@@ -114,7 +117,7 @@ def loop_pieces(
     carry_fcur, ssr_carry = sched.carry_fcur, sched.ssr_carry
 
     x = problem.x0 if x0 is None else x0
-    require_single_fit_if_matrix_free(problem, x)
+    require_single_fit_if_matrix_free(problem, x, solver_tag)
     dt = x.dtype
     batch_shape = tuple(x.shape[:-1])
     x_tol, f_tol, g_tol = resolve_tolerances(opts, dt)
@@ -123,7 +126,7 @@ def loop_pieces(
     def full(value, dtype):
         return torch.full(batch_shape, value, dtype=dtype, device=x.device)
 
-    fcur, gram0, grhs0, jstate0 = seed_eval(sched, problem, x)
+    fcur, gram0, grhs0, jstate0, jac0 = seed_eval(sched, problem, x)
     if ssr_carry:
         ssr, ssr_lo0 = sumabs2_dd(fcur)
     else:
@@ -140,7 +143,7 @@ def loop_pieces(
         ssr=ssr,
         delta=full(radius0, dt),
         decrease_factor=full(2.0, dt),
-        need_jacobian=full(True, torch.bool),
+        need_jacobian=full(jac0 is None, torch.bool),
         jstate=jstate0,
         maxabs_gr=full(torch.inf, dt),
         it=full(0, torch.int32),
@@ -149,11 +152,14 @@ def loop_pieces(
         g_converged=false,
         converged=false,
         f_calls=full(1, torch.int32),
-        g_calls=full(0, torch.int32),
+        g_calls=full(0 if jac0 is None else 1, torch.int32),  # a seed counts
         mul_calls=full(0, torch.int32),
         inner_istop=full(ISTOP_DIRECT, torch.int32),
         trace=trace,
     )
+    if jac0 is not None:
+        # The sparse seed: iteration 1 reuses this linearization.
+        carry["linearization"] = (fcur, operators.from_matrix(jac0))
     if carry_fcur:
         carry["fcur"] = fcur
     if ssr_carry:

@@ -15,10 +15,19 @@ tangent e_j in every row give column j of every fit's Jacobian. Batches
 take ``autodiff="forward"`` only; one fit (a flat x) also takes reverse
 mode, central differences and a user Jacobian ``g=``.
 
-For matrix-free operation (``materialize_jacobian=False``, the LSMR path)
-the Jacobian is never formed: ``ops/operators.py`` builds JVP/VJP closures
-at each linearization point, or runs the user's own (``matrix_free_problem``).
-Pytree parameters and sparse Jacobians are not ported yet.
+For matrix-free operation (``materialize_jacobian=False``: LSMR, or
+BlockCholesky) the Jacobian is never formed: ``ops/operators.py`` builds
+JVP/VJP closures at each linearization point, or runs the user's own
+(``matrix_free_problem``).
+
+A user Jacobian ``g`` may return a sparse COO tensor, for instance one
+built by ``ops/sparse.sparse_jacobian`` (compressed colored AD). The
+problem then has ``jacobian_is_sparse`` set: its solver defaults to LSMR,
+QR and Cholesky are rejected, and no fused evaluation exists
+(``res_jac_fn`` is None). The JAX package finds the sparse layout by an
+abstract evaluation that costs nothing; PyTorch has none, so the
+constructor calls ``g(x0)`` once, outside every work counter. Pytree
+parameters are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import numpy as np
 import torch
 
 from ._device import data_device
+from .ops.sparse import is_sparse
 
 
 def _forward_res_jac(residual_fn: Callable) -> Callable:
@@ -87,7 +97,10 @@ class LeastSquaresProblem:
     """An immutable nonlinear least-squares problem: minimize sum(f(x)^2).
 
     ``materialize_jacobian=False``: solvers that can run matrix-free
-    (LSMR) use JVP/VJP closures and never form J.
+    (LSMR, BlockCholesky) use JVP/VJP closures and never form J.
+
+    ``jacobian_is_sparse`` is True when ``jac_fn`` returns a sparse COO
+    tensor (the reference's sparse-CSC axis, src/types.jl:114-121).
 
     ``res_jac_shares_primal`` is True when ``res_jac_fn`` evaluates the
     model once for both r and J (forward mode); the optimizers' unfused
@@ -114,6 +127,7 @@ class LeastSquaresProblem:
     m: int
     jac_fn: Optional[Callable]
     materialize_jacobian: bool = True
+    jacobian_is_sparse: bool = False
     res_jac_fn: Optional[Callable] = None
     res_jac_shares_primal: bool = False
     jvp_fn: Optional[Callable] = None
@@ -159,7 +173,9 @@ def least_squares_problem(
     For one fit (a flat x) a scalar residual is wrapped to length 1 and a
     multi-dimensional one is flattened; ``g(x) -> J`` is a user Jacobian
     and ``autodiff`` picks forward mode, ``'reverse'`` (``torch.func.jacrev``)
-    or ``'central'`` differences.
+    or ``'central'`` differences. A ``g`` that returns a sparse tensor makes
+    a sparse problem (see the module); ``g`` is called once here to find
+    out, and its shape is checked at each call.
     """
     if f is None:
         raise ValueError("residual function f is required")
@@ -177,8 +193,8 @@ def least_squares_problem(
     if not single and (g is not None or autodiff != "forward"):
         raise NotImplementedError(
             "batched problems (x of shape (..., n)) take autodiff='forward' "
-            "only so far; user Jacobians, reverse mode and central "
-            "differences are ported for one fit"
+            "only so far; a user Jacobian g= (sparse Jacobians included), "
+            "reverse mode and central differences are ported for one fit"
         )
 
     residual_fn = f
@@ -195,7 +211,7 @@ def least_squares_problem(
         output_length = int(residual_fn(x).shape[-1])
     m, n = int(output_length), int(x.shape[-1])
 
-    shares_primal = False
+    shares_primal = sparse = False
     if g is not None:
         def jac_fn(xx):
             J = g(xx)
@@ -206,7 +222,9 @@ def least_squares_problem(
                 )
             return J
 
-        res_jac_fn = lambda xx: (residual_fn(xx), jac_fn(xx))  # noqa: E731
+        sparse = is_sparse(g(x))
+        res_jac_fn = None if sparse else (
+            lambda xx: (residual_fn(xx), jac_fn(xx)))
     elif autodiff == "forward":
         res_jac_fn = _forward_res_jac(residual_fn)
         jac_fn = lambda xx: res_jac_fn(xx)[1]  # noqa: E731
@@ -223,6 +241,7 @@ def least_squares_problem(
         m=m,
         jac_fn=jac_fn,
         materialize_jacobian=materialize_jacobian,
+        jacobian_is_sparse=sparse,
         res_jac_fn=res_jac_fn,
         res_jac_shares_primal=shares_primal,
     )

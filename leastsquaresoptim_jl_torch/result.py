@@ -14,6 +14,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .ops.sparse import is_sparse
+
 
 class IsFiniteError(Exception):
     """Raised when the iterate becomes non-finite (reference
@@ -142,6 +144,14 @@ def converged(r: LeastSquaresResult) -> bool:
     return r.x_converged or r.f_converged or r.g_converged
 
 
+def _host_jacobian(J):
+    """The result's Jacobian: dense comes back as numpy, a sparse tensor
+    as it is (pattern and values)."""
+    if J is None or is_sparse(J):
+        return J
+    return _np(J)
+
+
 def result_from_raw(raw, opts) -> LeastSquaresResult:
     """The host-side result of one fit's raw result dict. ``opts`` must
     carry concrete tolerances. Raises ``IsFiniteError`` with the indices of
@@ -167,7 +177,7 @@ def result_from_raw(raw, opts) -> LeastSquaresResult:
         f_calls=int(_np(raw["f_calls"])),
         g_calls=int(_np(raw["g_calls"])),
         mul_calls=int(_np(raw["mul_calls"])),
-        jacobian=None if jac is None else _np(jac),
+        jacobian=_host_jacobian(jac),
         inner_istop=int(_np(raw.get("inner_istop", -1))),
         maxabs_gr=float(_np(raw.get("maxabs_gr", np.nan))),
     )

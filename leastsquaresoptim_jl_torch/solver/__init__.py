@@ -3,7 +3,9 @@
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/solver/__init__.py``.
 Every solve takes the Jacobian as an operator (ops/operators.py) and
 returns ``(dx, mvps, istop)``: QR and Cholesky read the materialized
-``op.J``, LSMR reads ``op.matvec`` / ``op.rmatvec`` / ``op.colnorms2``.
+``op.J``, LSMR reads ``op.matvec`` / ``op.rmatvec`` / ``op.colnorms2``,
+BlockCholesky probes the Gram through the products (or through ``op.J``
+when it is materialized).
 ``mvps`` is the reference's matvec accounting; ``istop`` is the inner LSMR
 stop reason (reference ConvergenceHistory, src/utils/lsmr.jl:9-14), which
 reaches the result as ``inner_istop``, and ``ISTOP_DIRECT`` (-1) for the
@@ -12,6 +14,7 @@ direct solvers.
 
 from __future__ import annotations
 
+from . import block_cholesky as _block_cholesky
 from . import cholesky as _cholesky
 from . import lsmr as _lsmr
 from . import qr as _qr
@@ -64,8 +67,11 @@ def solver_fns(tag: AbstractSolver):
 
         return gn, damped
     if isinstance(tag, BlockCholesky):
-        raise NotImplementedError(
-            "solver BlockCholesky() (the block-tridiagonal direct solver) "
-            "is not ported yet; use LSMR(), QR() or Cholesky()"
+        s, meth = tag.block_size, tag.method
+        return (
+            lambda op, y: _block_cholesky.solve_gn(op, y, s, meth)
+            + (ISTOP_DIRECT,),
+            lambda op, y, d: _block_cholesky.solve_damped(op, y, d, s, meth)
+            + (ISTOP_DIRECT,),
         )
     raise TypeError(f"unknown solver tag {tag!r}")

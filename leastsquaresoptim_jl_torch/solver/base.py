@@ -1,10 +1,18 @@
 """Solver tags and default-selection rules.
 
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/solver/base.py``
-(reference: src/types.jl:78-127). The tags carry no tensors. ``QR``,
-``Cholesky`` and ``LSMR`` are implemented; ``BlockCholesky`` exists so that
-a caller can name it, and raises ``NotImplementedError`` when a solve would
-use it.
+(reference: src/types.jl:78-127). The tags carry no tensors:
+
+  QR()            dense QR solve of min ||J dx - y||;
+  Cholesky()      normal-equations solve of (J'J [+ diag(d)]) dx = J'y;
+  BlockCholesky() the same system for a block-tridiagonal J'J, recovered
+                  from 3s probe matvec-pairs (materialized or matrix-free);
+  LSMR(...)       matrix-free Golub-Kahan iteration with a Jacobi
+                  (column-norm) preconditioner.
+
+Default rules (reference: src/types.jl:113-127): a dense materialized
+Jacobian gets QR, a sparse or matrix-free one LSMR; LSMR selects
+LevenbergMarquardt, anything else Dogleg.
 """
 
 from __future__ import annotations
@@ -44,8 +52,21 @@ class Cholesky(AbstractSolver):
 
 @dataclasses.dataclass(frozen=True)
 class BlockCholesky(AbstractSolver):
-    """Block-tridiagonal normal-equations solver tag (the JAX package's
-    ``ops/block_tridiag.py``). Not implemented in this package yet."""
+    """Block-tridiagonal normal-equations direct solver
+    (solver/block_cholesky.py, ops/block_tridiag.py).
+
+    For problems whose Gram J'J is block-tridiagonal with square blocks of
+    ``block_size`` (1-D chain and boundary-value models: MINPACK
+    broyden_tridiagonal and discrete_boundary_value). The Gram is
+    recovered exactly from 3*block_size probe matvec-pairs, so it runs
+    matrix-free as well, and on a batch of matrix-free fits. Per solve:
+    6*block_size + 1 matvecs and O((n/s) s^3) flops. ``block_size`` must
+    divide n, and the declared structure must hold: a wider coupling
+    aliases into the recovered blocks without an error.
+
+    ``method``: "scan" (the blocked Cholesky, nb sequential steps), "cr"
+    (block cyclic reduction, about log2(nb) batched levels) or "auto"
+    (cr above 64 block rows)."""
 
     block_size: int = 1
     method: str = "auto"
@@ -86,15 +107,23 @@ class LSMR(AbstractSolver):
 
 
 def default_solver(solver, problem) -> AbstractSolver:
-    """Reference: src/types.jl:113-121 — dense Jacobian -> QR, matrix-free
-    -> LSMR; Cholesky needs a materialized Jacobian."""
+    """Reference: src/types.jl:113-121 — dense Jacobian -> QR, anything
+    else (sparse, matrix-free) -> LSMR. QR and Cholesky need a dense
+    materialized Jacobian: with a sparse one they are rejected (reference:
+    src/types.jl:114-118; the reference has no sparse Cholesky either)."""
+    sparse = problem.jacobian_is_sparse
     if solver is not None:
         if isinstance(solver, (QR, Cholesky)) and not problem.materialize_jacobian:
             raise ValueError(
                 f"solver {type(solver).__name__}() is not available for "
                 "matrix-free problems. Choose LSMR()"
             )
+        if isinstance(solver, (QR, Cholesky)) and sparse:
+            raise ValueError(
+                f"solver {type(solver).__name__}() is not available for "
+                "sparse Jacobians. Choose LSMR()"
+            )
         return solver
-    if problem.materialize_jacobian:
+    if problem.materialize_jacobian and not sparse:
         return QR()
     return LSMR()

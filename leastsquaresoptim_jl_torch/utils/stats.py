@@ -7,8 +7,9 @@ minimizer and the ssr). Gauss-Newton covariance at the minimizer,
     cov = s^2 (J'J)^{-1},   s^2 = ssr / (m - n),
 
 from the final Jacobian the result carries, or re-linearized through a
-problem. A singular or rank-deficient J'J gives a pseudo-inverse
-covariance with infinite variance on the null-space directions. The
+problem; a sparse Jacobian is densified first. A singular or
+rank-deficient J'J gives a pseudo-inverse covariance with infinite
+variance on the null-space directions. The
 statistics are computed on the host in float64, whatever the solve's
 dtype and device. Parameters are flat vectors.
 """
@@ -23,6 +24,8 @@ __all__ = ["covariance", "standard_errors"]
 
 def _np64(J):
     if isinstance(J, torch.Tensor):
+        if J.layout != torch.strided:  # sparse: densified
+            J = J.to_dense()
         J = J.detach().cpu().numpy()
     return np.asarray(J).astype(np.float64)
 

@@ -154,9 +154,12 @@ def test_contract_errors():
     with pytest.raises(ValueError, match="user Jacobian"):
         lt.optimize(rosenbrock_t, torch.zeros(2), loss="huber",
                     g=lambda x: torch.zeros(2, 2))
-    with pytest.raises(NotImplementedError, match="BlockCholesky"):
-        lt.optimize(rosenbrock_t, torch.zeros(2),
+    # BlockCholesky was a later slice once: it runs (two 1 x 1 blocks hold
+    # Rosenbrock's whole 2 x 2 Gram).
+    r = lt.optimize(rosenbrock_t, torch.zeros(2, dtype=torch.float64),
                     lt.LevenbergMarquardt(lt.BlockCholesky()))
+    assert r.converged and r.inner_istop == -1
+    np.testing.assert_allclose(r.minimizer, [1.0, 1.0], atol=1e-6)
     with pytest.raises(ValueError, match="block_size"):
         lt.BlockCholesky(block_size=0)
     # LSMR is ported: it runs and reports its inner stop.

@@ -368,10 +368,11 @@ def _pytree_x():
 
 
 def _sparse_jacobian():
-    p = lt.least_squares_problem(
-        rosenbrock_t, torch.zeros(2, dtype=F64),
-        g=lambda x: rosenbrock_gt(x).to_sparse())
-    lt.solve(p, lt.LevenbergMarquardt(lt.LSMR()))
+    """A user g returning a sparse tensor: LevenbergMarquardt(LSMR()) by
+    default."""
+    r = lt.optimize(rosenbrock_t, X2, g=lambda x: rosenbrock_gt(x).to_sparse())
+    assert r.optimizer == "LevenbergMarquardt" and r.jacobian.layout == torch.sparse_coo
+    return r
 
 
 def _batched_matrix_free():
@@ -380,8 +381,8 @@ def _batched_matrix_free():
 
 
 def _block_cholesky():
-    p = lt.least_squares_problem(rosenbrock_t, torch.zeros(2, dtype=F64))
-    lt.solve(p, lt.LevenbergMarquardt(lt.BlockCholesky(block_size=2)))
+    return lt.optimize(rosenbrock_t, X2,
+                       lt.LevenbergMarquardt(lt.BlockCholesky(block_size=2)))
 
 
 def _batched_reverse_mode():
@@ -407,9 +408,7 @@ def _nist_separable():
 
 STILL_WAITS = {
     "pytree x": (_pytree_x, "pytree parameters"),
-    "sparse J": (_sparse_jacobian, "sparse Jacobians"),
-    "batched matrix-free": (_batched_matrix_free, "batched matrix-free"),
-    "BlockCholesky": (_block_cholesky, "BlockCholesky"),
+    "batched matrix-free": (_batched_matrix_free, "batched matrix-free.*LSMR"),
     "batched reverse mode": (_batched_reverse_mode, "batched problems"),
     "batched geodesic": (_batched_geodesic, "geodesic acceleration in batched"),
 }
@@ -443,6 +442,11 @@ NOW_PORTED = {
     "NIST_SEPARABLE": _nist_separable,
     "bounded batch": lambda: _best_row(optimizer=lt.LevenbergMarquardt(lt.Cholesky()),
                                        lower=[-2.0, -1.0], upper=[3.0, 3.0]),
+    "sparse J": _sparse_jacobian,
+    "BlockCholesky": _block_cholesky,
+    "batched matrix-free BlockCholesky": lambda: _best_row(
+        optimizer=lt.LevenbergMarquardt(lt.BlockCholesky(2)),
+        materialize_jacobian=False),
 }
 
 
