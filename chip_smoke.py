@@ -3,9 +3,11 @@ the Gram kernel and the row-sharded Gram, the single-fit dense path, the
 matrix-free path (LSMR over Jacobian operators) at BASELINE.json config
 #4's size, the reference's test problems (MINPACK, NIST StRD) with
 batched Dogleg, bounded batches and multistart, the rest of curve
-fitting (start-free multi-term fits, robust losses, single fits), and the
+fitting (start-free multi-term fits, robust losses, single fits), the
 structured-Jacobian path (BlockCholesky, sparse Jacobians by colored AD)
-at configs #4 and #5's size.
+at configs #4 and #5's size, and the batched breadth (geodesic LM, LSMR
+and reverse/central differences over batches), structured parameters,
+checkpoints and the entry points.
 
     python3 chip_smoke.py
 
@@ -135,8 +137,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    (b) The NIST StRD scoreboard of tests/test_nist.py in float64 (16
    datasets x 2 certified starts through the x0 override, x_tol = 1e-50,
    f_tol = 1e-36, g_tol = 1e-50): Dogleg(QR) >= 30 and LM(QR) >= 31 of 32
-   within 1e-3 of the certified solution, no NaN minimizer; LM(Cholesky),
-   config #2's solver, printed without a limit.
+   within 1e-3 of the certified solution, no NaN minimizer. (Until phase
+   13 was added LM(Cholesky), config #2's solver, ran here too, printed
+   without a limit: 40% of the pool's job seconds; its last reading was
+   31 of 32.)
    (c) MGH09 and MGH10 from 64 Latin-hypercube starts over [min(s0, s1)/4,
    max(s0, s1)*4] through optimize_multistart (batched Dogleg(Cholesky())),
    float64: the best row converged within 1e-3 of the certified solution.
@@ -185,8 +189,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    control; each robust median error (a non-finite fit counts as infinite)
    < 0.02 and < 1/5 of the control's; the IRLS round count.
    (d) single fits in float64: Dogleg(QR)'s half of the NIST_SEPARABLE
-   scoreboard of tests/test_separable.py in a spawned pool (only MGH09 s0
-   may miss; the MGH10 s0 rescue must hold), start-free Lanczos3 within
+   scoreboard of tests/test_separable.py at the first certified start (s0,
+   the start of the allowed miss and of the rescue; s1 was cut when phase
+   13 was added) in a spawned pool (only MGH09 s0 may miss; the MGH10 s0
+   rescue must hold), start-free Lanczos3 within
    1e-3 of the certified solution, a weighted curve_fit of Misra1b and its
    covariance against numpy from the same J (1e-10), and polish of an 11a
    float32 fit within 1e-10 of the float64 fit.
@@ -225,6 +231,36 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    median of 3), fits/s, lockstep iterations, one profiler pass; every fit
    converged; the first 64 fits in float64 on the card within 1e-10 of the
    CPU's.
+
+13. The batched breadth, checkpoints and the entry points, no kernel of
+   their own (both kernels' counters are reset before 13a and must read 0
+   after 13d; every route also reads 0 on its own; float32 unless stated;
+   times, lockstep iterations and one profiler pass per route as 10d).
+   (a) benchmarks/bench_geodesic.py:32-62's workload: B = 50000 exp_sum_2
+   fits, m = 64, xd = linspace(0, 6, 64), truth [U(1,4), U(0.45,0.60),
+   U(0.5,2.5), U(0.75,1.00)], starts 0.5-2x the truth (numpy
+   default_rng(0)), 400 iterations, stop at 99% done, through
+   curve_fit_batch with LM(Cholesky(), geodesic=False) and geodesic=True:
+   converged share and median max relative error, every minimizer finite;
+   the first 64 fits in float64 on the card against the CPU (equal per-fit
+   iterations, minimizers within 1e-9 relative).
+   (b) Phase 3's data through solve_batch(LM(LSMR()),
+   materialize_jacobian=False, stop at 99% done): >= 99% converged, median
+   relative error against the truth <= 1e-4, inner LSMR iterations per LM
+   iteration; then 12e's B = 2048 broyden_tridiagonal(256) batch by
+   LM(LSMR()) (hashed Hutchinson column norms at n = 256): every fit
+   converged, minimizers within 1e-3 of LM(BlockCholesky(2))'s, and 64
+   fits in float64 on the card against the CPU (equal iterations and
+   mul_calls, minimizers within 1e-10).
+   (c) Phase 3's joint route, solve_batch(LM(Cholesky()), stop at 99%
+   done), with autodiff="forward", "reverse" and "central": each >= 99%
+   converged, median relative error <= 1e-4.
+   (d) float64: Misra1a from its first certified start with {"b1", "b2"}
+   parameters against the flat vector (minimizer within 1e-12, counters
+   equal); save_pytree after 3 Dogleg iterations, resume_x0 and finish
+   (tests/test_api.py:131-160's scenario); a torch.distributed.checkpoint
+   round trip of (b)'s (131072, 2) minimizer (exact); entry() on the card
+   (output shapes, finite); dryrun_multichip(1) on one NCCL rank.
 
 The second-to-last line is a JSON object describing each kernel (times
 from phase 5 for kernel_varpro, at the lanes the rule picks, and from
@@ -445,6 +481,7 @@ def main():
     phase_reference_problems(dev, smi)
     phase_curve_fitting(dev, smi)
     phase_structured(dev, smi)
+    phase_batched_breadth(dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "kernel_varpro",
@@ -1389,8 +1426,7 @@ MINPACK_GRIDS = {
     "central": ("full_suite", [("Dogleg", None), ("LevenbergMarquardt", None)],
                 dict(autodiff="central"), True),
 }
-NIST_OPTIMIZERS = [("Dogleg", "QR"), ("LevenbergMarquardt", "QR"),
-                   ("LevenbergMarquardt", "Cholesky")]
+NIST_OPTIMIZERS = [("Dogleg", "QR"), ("LevenbergMarquardt", "QR")]
 NIST_TOLS = dict(x_tol=1e-50, f_tol=1e-36, g_tol=1e-50)
 NIST_MIN_SCORE = {("Dogleg", "QR"): 30, ("LevenbergMarquardt", "QR"): 31}
 SINGLE_FITS = 512  # phase 10d's batch against one fit at a time
@@ -2000,6 +2036,9 @@ def varpro_job(job):
 # half (the one with the MGH10 s0 rescue); tests/test_torch_nist_varpro.py
 # holds LM's allowed miss against the JAX package on the CPU.
 VARPRO_ALLOWED_MISSES = {"Dogleg": {("MGH09", 0)}}
+# The certified starts it runs: s0 only, the start of the allowed miss and
+# of the MGH10 rescue (s1 was cut to make room for phase 13).
+VARPRO_STARTS = (0,)
 
 
 def phase_single_fits(dev, smi, x, Y_np, raw32, raw64):
@@ -2014,7 +2053,7 @@ def phase_single_fits(dev, smi, x, Y_np, raw32, raw64):
 
     workers = min(8, os.cpu_count() or 1)
     jobs = [("varpro", o, name, i) for o in VARPRO_ALLOWED_MISSES
-            for name in nist.NIST_SEPARABLE for i in (0, 1)]
+            for name in nist.NIST_SEPARABLE for i in VARPRO_STARTS]
     print(f"== phase 11d: NIST_SEPARABLE scoreboard, {len(jobs)} float64 runs (3000 "
           f"iterations, x_tol 1e-50) over {workers} workers on {dev}")
     ctx = multiprocessing.get_context("spawn")
@@ -2032,7 +2071,8 @@ def phase_single_fits(dev, smi, x, Y_np, raw32, raw64):
         print(f"  {o}(QR): {len(runs) - len(misses)}/{len(runs)} within 1e-3 of the certified "
               f"solution, misses {misses}, job seconds "
               f"{sum(r['seconds'] for r in runs.values()):.2f} [{smi}]")
-        check(len(runs) == 28 and set(misses) <= allowed,
+        check(len(runs) == len(nist.NIST_SEPARABLE) * len(VARPRO_STARTS)
+              and set(misses) <= allowed,
               f"11d {o}(QR): misses within the allowed {sorted(allowed)}")
         if o == "Dogleg":
             check(("MGH10", 0) not in misses, "11d Dogleg(QR): the MGH10 s0 rescue holds")
@@ -2348,6 +2388,249 @@ def phase_structured(dev, smi):
     check(kv.launches == 0 and gram.launches == 0,
           "phase 12 launches neither hand-written kernel (none lies on it)")
     print(f"== phase 12 took {time.perf_counter() - t0:.2f} s")
+
+
+
+# -- phase 13: the batched breadth, checkpoints and the entry points ----------
+
+GEO_B, GEO_M, GEO_ITERATIONS = 50_000, 64, 400  # benchmarks/bench_geodesic.py:32-62
+CARD_CPU_FITS = 64  # 13a, 13b: the card against the CPU in float64
+
+
+def geodesic_data(B, seed=0):
+    """benchmarks/bench_geodesic.py:38-62: exp_sum_2 decays with close
+    rates (a sloppy valley), starts 0.5-2x the truth."""
+    rng = np.random.default_rng(seed)
+    xd = np.linspace(0.0, 6.0, GEO_M)
+    bt = np.stack([rng.uniform(1.0, 4.0, B), rng.uniform(0.45, 0.60, B),
+                   rng.uniform(0.5, 2.5, B), rng.uniform(0.75, 1.00, B)], 1)
+    Y = (bt[:, :1] * np.exp(-bt[:, 1:2] * xd[None, :])
+         + bt[:, 2:3] * np.exp(-bt[:, 3:4] * xd[None, :])).astype(np.float32)
+    p0 = (bt * rng.uniform(0.5, 2.0, bt.shape)).astype(np.float32)
+    return xd, Y, p0, bt
+
+
+def card_against_cpu(label, run, dev, counters=("iterations",), rtol=1e-9):
+    """``run(device)`` on the card and on the CPU in float64: equal
+    per-fit counters, minimizers within ``rtol`` relative."""
+    card, cpu = run(dev), run(torch.device("cpu"))
+    d = rel(card["minimizer"].cpu(), cpu["minimizer"]).max().item()
+    same = {k: bool((card[k].cpu() == cpu[k]).all()) for k in counters}
+    print(f"  {label}: the first {CARD_CPU_FITS} fits in float64, card against CPU: "
+          f"minimizers max rel diff {d:.3e}, equal {same}")
+    check(all(same.values()) and d <= rtol,
+          f"{label}: the card equals the CPU ({', '.join(counters)} equal, minimizers "
+          f"within {rtol:g})")
+
+
+def phase_batched_geodesic(dev, smi):
+    """13a: curve_fit_batch over exp_sum_2 with plain and geodesic LM."""
+    import leastsquaresoptim_jl_torch as lt
+    from leastsquaresoptim_jl_torch.models import curve_fit_batch
+
+    xd, Y_np, p0_np, bt = geodesic_data(GEO_B)
+    truth = torch.tensor(bt, dtype=torch.float64, device=dev)
+    opts = lt.Options(iterations=GEO_ITERATIONS)
+    for geo in (False, True):
+        opt = lt.LevenbergMarquardt(lt.Cholesky(), geodesic=geo)
+        label = f"13a exp_sum_2 LM(Cholesky(), geodesic={geo})"
+        print(f"== phase {label}, B={GEO_B}, m={GEO_M}, float32, {GEO_ITERATIONS} "
+              "iterations, stop at 99% done")
+
+        def run(device=dev, dtype=torch.float32, count=GEO_B, opt=opt):
+            return curve_fit_batch(
+                "exp_sum_2", xd, torch.tensor(Y_np[:count], dtype=dtype, device=device),
+                torch.tensor(p0_np[:count], dtype=dtype, device=device), optimizer=opt,
+                options=opts, min_converged_fraction=FRAC)
+
+        raw = run_route(label, run, smi, GEO_B)
+        conv = raw["converged"].double().mean().item()
+        err = max_rel(raw["minimizer"], truth).median().item()
+        finite = bool(torch.isfinite(raw["minimizer"]).all())
+        print(f"  converged {conv:.6f}, median max relative error vs truth {err:.3e}, "
+              f"every minimizer finite {finite}")
+        check(finite, f"{label}: every minimizer finite")
+        card_against_cpu(label, lambda device, run=run: run(device, torch.float64,
+                                                            CARD_CPU_FITS), dev)
+
+
+def saturation_residual_problem(dev):
+    """Phase 3's data as tensors on ``dev``: grid, observations, starts and
+    truth, and phase 3's options."""
+    import leastsquaresoptim_jl_torch as lt
+
+    xdata, Y_np, x0_np, bt = bench_data(B_MAIN, seed=0)
+    x = torch.tensor(xdata, dtype=torch.float32, device=dev)
+    Y = torch.tensor(Y_np, dtype=torch.float32, device=dev)
+    P0 = torch.tensor(x0_np, dtype=torch.float32, device=dev)
+    truth = torch.tensor(bt, dtype=torch.float64, device=dev)
+    return x, Y, P0, truth, lt.Options(iterations=ITERATIONS, radius=RADIUS, **TOLS)
+
+
+def phase_batched_lsmr(dev, smi):
+    """13b: matrix-free LM(LSMR()) on phase 3's data and on 12e's
+    broyden_tridiagonal batch. Returns 13b-1's raw result."""
+    import leastsquaresoptim_jl_torch as lt
+    from leastsquaresoptim_jl_torch.models.minpack import broyden_tridiagonal
+
+    x, Y, P0, truth, opts = saturation_residual_problem(dev)
+    label = "13b LM(LSMR()) matrix-free exp_saturation"
+    print(f"== phase {label}, B={B_MAIN}, m={M}, float32, stop at 99% done")
+
+    def run():
+        return lt.solve_batch(exp_saturation_residual, P0, (x, Y),
+                              lt.LevenbergMarquardt(lt.LSMR()), options=opts,
+                              output_length=M, materialize_jacobian=False,
+                              min_converged_fraction=FRAC, data_axis=(None, 0))
+
+    raw = run_route(label, run, smi, B_MAIN)
+    conv = raw["converged"].double().mean().item()
+    err = rel(raw["minimizer"], truth).median().item()
+    its = raw["iterations"].double()
+    inner = ((raw["mul_calls"].double() - 2.0 * its) / 2.0).sum().item() / its.sum().item()
+    print(f"  converged {conv:.6f}, median rel error vs truth {err:.3e}, inner LSMR "
+          f"iterations per LM iteration {inner:.3f} (mean over the fit-iterations)")
+    check(conv >= 0.99 and err <= 1e-4,
+          f"{label}: >= 99% converged, median relative error <= 1e-4")
+
+    B, n = BATCH_BC, N_BC
+    scale = np.linspace(0.8, 1.2, B)[:, None]
+
+    def broyden(optimizer, dt=torch.float32, device=dev, count=B):
+        _, f, x0, _ = broyden_tridiagonal(n, dtype=dt, device=device)
+        xb = x0[None, :] * torch.tensor(scale[:count], dtype=dt, device=device)
+        return lt.solve_batch(f, xb, None, optimizer, output_length=n,
+                              materialize_jacobian=False)
+
+    label = f"13b LM(LSMR()) matrix-free broyden_tridiagonal({n})"
+    print(f"== phase {label}, B={B}, float32 (hashed Hutchinson column norms)")
+    raw_bt = run_route(label, lambda: broyden(lt.LevenbergMarquardt(lt.LSMR())), smi, B)
+    its = raw_bt["iterations"].double()
+    inner = ((raw_bt["mul_calls"].double() - 2.0 * its) / 2.0).sum().item() / its.sum().item()
+    ref = broyden(lt.LevenbergMarquardt(lt.BlockCholesky(2)))
+    d = (raw_bt["minimizer"] - ref["minimizer"]).abs().max().item()
+    conv = raw_bt["converged"].double().mean().item()
+    print(f"  converged {conv:.6f}, inner LSMR iterations per LM iteration {inner:.3f}, "
+          f"minimizers against 12e's LM(BlockCholesky(2)) max abs diff {d:.3e}")
+    check(conv == 1.0 and d <= 1e-3,
+          f"{label}: every fit converged, within 1e-3 of LM(BlockCholesky(2))")
+    card_against_cpu(label, lambda device: broyden(lt.LevenbergMarquardt(lt.LSMR()),
+                                                   torch.float64, device, CARD_CPU_FITS),
+                     dev, counters=("iterations", "mul_calls"), rtol=1e-10)
+    return raw
+
+
+def phase_batched_autodiff(dev, smi):
+    """13c: phase 3's joint route with reverse mode and central
+    differences, beside forward mode."""
+    import leastsquaresoptim_jl_torch as lt
+
+    x, Y, P0, truth, opts = saturation_residual_problem(dev)
+    for autodiff in ("forward", "reverse", "central"):
+        label = f"13c solve_batch LM(Cholesky()) autodiff={autodiff!r}"
+        print(f"== phase {label}, B={B_MAIN}, m={M}, float32, stop at 99% done")
+
+        def run(autodiff=autodiff):
+            return lt.solve_batch(exp_saturation_residual, P0, (x, Y),
+                                  lt.LevenbergMarquardt(lt.Cholesky()), options=opts,
+                                  output_length=M, autodiff=autodiff,
+                                  min_converged_fraction=FRAC, data_axis=(None, 0))
+
+        raw = run_route(label, run, smi, B_MAIN)
+        conv = raw["converged"].double().mean().item()
+        err = rel(raw["minimizer"], truth).median().item()
+        print(f"  converged {conv:.6f}, median rel error vs truth {err:.3e}")
+        check(conv >= 0.99 and err <= 1e-4,
+              f"{label}: >= 99% converged, median relative error <= 1e-4")
+
+
+def phase_structured_entry(dev, smi, minimizer):
+    """13d: pytree parameters, checkpoints, entry() and the dry run on the
+    card. ``minimizer`` is 13b's (131072, 2) result."""
+    import tempfile
+
+    import leastsquaresoptim_jl_torch as lt
+    from leastsquaresoptim_jl_torch.entry import dryrun_multichip, entry
+    from leastsquaresoptim_jl_torch.models import nist
+    from leastsquaresoptim_jl_torch.utils import checkpoint
+
+    d = nist.DATASETS["misra1a"]
+    xm = torch.tensor(d["x"], dtype=torch.float64, device=dev)
+    ym = torch.tensor(d["y"], dtype=torch.float64, device=dev)
+    start = torch.tensor(d["starts"][0], dtype=torch.float64, device=dev)
+    flat = lt.optimize(lambda b: ym - nist.MODELS["misra1a"](xm, b), start)
+    tree = lt.optimize(
+        lambda p: ym - nist.MODELS["misra1a"](xm, torch.stack([p["b1"], p["b2"]])),
+        {"b1": start[0], "b2": start[1]})
+    got = np.array([tree.minimizer["b1"], tree.minimizer["b2"]])
+    diff = float(np.max(np.abs(got - flat.minimizer) / np.abs(flat.minimizer)))
+    same = all(getattr(tree, k) == getattr(flat, k)
+               for k in ("iterations", "f_calls", "g_calls", "mul_calls", "converged"))
+    print(f"== phase 13d: Misra1a from start 1 with {{'b1', 'b2'}} parameters against the flat "
+          f"vector: minimizer max rel diff {diff:.3e}, counters equal {same}, iterations "
+          f"{tree.iterations}, converged {tree.converged}")
+    check(diff <= 1e-12 and same, "13d: the dict fit equals the flat fit (1e-12, counters)")
+
+    def f(z):
+        return torch.stack([1 - z[0], 2.0 * (z[1] - z[0] ** 2)])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        p = lt.least_squares_problem(f, torch.zeros(2, dtype=torch.float64, device=dev))
+        r1 = lt.optimize_problem(p, lt.Dogleg(), iterations=3)
+        path = os.path.join(tmp, "ckpt")
+        checkpoint.save_pytree(path, {"minimizer": r1.minimizer})
+        r2 = lt.optimize_problem(p, lt.Dogleg(), x0=checkpoint.resume_x0(path))
+        print(f"  save_pytree after 3 iterations (converged {r1.converged}), resume_x0, "
+              f"finish: converged {r2.converged}, ssr {r2.ssr:.3e}, minimizer "
+              f"{r2.minimizer.tolist()}")
+        check(not r1.converged and r2.converged and r2.ssr <= 1e-10,
+              "13d: a solve saved, resumed and finished")
+
+        dcp = os.path.join(tmp, "dcp")
+        t0 = time.perf_counter()
+        checkpoint.save_pytree_distributed(dcp, {"minimizer": minimizer})
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.load_pytree_distributed(
+            dcp, {"minimizer": torch.zeros_like(minimizer)})
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        equal = bool(torch.equal(back["minimizer"], minimizer))
+        print(f"  torch.distributed.checkpoint round trip of a {tuple(minimizer.shape)} "
+              f"{minimizer.dtype} minimizer on {back['minimizer'].device}: equal {equal}, "
+              f"save {t_save:.3f} s, load {t_load:.3f} s [{smi}]")
+        check(equal, "13d: the distributed checkpoint round trip is exact")
+
+    fn, args = entry() if dev.type == "cuda" else entry(device=dev)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    shapes = [tuple(o.shape) for o in out]
+    print(f"  entry() on {out[0].device}: output shapes {shapes}, finite "
+          f"{bool(torch.isfinite(out[0]).all())}, iterations max {int(out[2].max())}")
+    check(shapes == [(32, 2), (32,), (32,)] and out[0].device.type == dev.type
+          and bool(torch.isfinite(out[0]).all()), "13d: entry() runs on the card")
+    t0 = time.perf_counter()
+    dryrun_multichip(1, device=dev.type)
+    print(f"  dryrun_multichip(1) on one rank in {time.perf_counter() - t0:.2f} s")
+
+
+def phase_batched_breadth(dev, smi):
+    """Phase 13: geodesic, LSMR and reverse/central batches, pytrees,
+    checkpoints and the entry points; no hand-written kernel may launch."""
+    from leastsquaresoptim_jl_torch.ops import gram
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    t0 = time.perf_counter()
+    kv.launches = gram.launches = 0
+    phase_batched_geodesic(dev, smi)
+    minimizer = phase_batched_lsmr(dev, smi)["minimizer"]
+    phase_batched_autodiff(dev, smi)
+    phase_structured_entry(dev, smi, minimizer)
+    print(f"  launches on the batched breadth (13a-13d): kernel_varpro {kv.launches}, "
+          f"gram {gram.launches}")
+    check(kv.launches == 0 and gram.launches == 0,
+          "phase 13 launches neither hand-written kernel (none lies on it)")
+    print(f"== phase 13 took {time.perf_counter() - t0:.2f} s")
 
 
 if __name__ == "__main__":

@@ -7,17 +7,21 @@ paths, so each counterpart is easy to find. Ported so far: curve fitting
 variable projection at any number of linear coefficients, ``p0="auto"``,
 robust losses with ``robustify`` and IRLS, bounds) with the fused p = 1
 VarPro LM kernel and the Gram kernel, both written by hand in CUDA C++ for
-sm_90a; batched LM and Dogleg with box bounds (``solve_batch``) and
-multi-start solves (``optimize_multistart``); the single-fit dense path
-(``solve`` / ``optimize``, LM and Dogleg over QR and Cholesky, bounds,
-geodesic acceleration, robust losses, the float64 ``polish``); the
-matrix-free path (``matrix_free_problem``, LSMR over Jacobian operators,
-the row-sharded ``parallel.solve_sharded``); the structured-Jacobian
-path (``BlockCholesky``, block-tridiagonal Grams from probe matvecs, on
-one fit or a batch of matrix-free fits; sparse Jacobians from
-``sparse_jacobian``'s colored AD or a user's sparse ``g``); post-fit statistics
-(``utils.covariance``); and the reference's test problems
-(``models.minpack``, ``models.nist``).
+sm_90a; batched LM and Dogleg with box bounds (``solve_batch``: dense,
+or matrix-free over LSMR or BlockCholesky, geodesic LM, forward, reverse
+or central derivatives) and multi-start solves (``optimize_multistart``);
+the single-fit dense path (``solve`` / ``optimize``, LM and Dogleg over
+QR and Cholesky, bounds, geodesic acceleration, robust losses, the
+float64 ``polish``), with structured parameters (a dict, list or tuple
+of tensors, or a matrix) in and out; the matrix-free path
+(``matrix_free_problem``, LSMR over Jacobian operators, the row-sharded
+``parallel.solve_sharded`` for one fit or a batch); the
+structured-Jacobian path (``BlockCholesky``, block-tridiagonal Grams
+from probe matvecs; sparse Jacobians from ``sparse_jacobian``'s colored
+AD or a user's sparse ``g``); post-fit statistics (``utils.covariance``);
+checkpoint and resume (``utils.checkpoint``); the entry points
+(``entry.entry``, ``entry.dryrun_multichip``); and the reference's test
+problems (``models.minpack``, ``models.nist``).
 """
 
 from . import config, parallel, utils

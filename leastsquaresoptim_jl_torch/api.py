@@ -15,23 +15,32 @@ src/types.jl:161-209):
 The JAX package caches problems and their compiled solves across
 ``optimize`` calls (its problem cache and per-problem jit cache), because
 a rebuilt problem would recompile. PyTorch runs eagerly and compiles
-nothing, so that cache has no counterpart here. Pytree parameters are
-not ported yet.
+nothing, so that cache has no counterpart here.
+
+Structured parameters (a dict, list or tuple of tensors, or an array of
+rank > 1; problem.py) go in as ``x0`` and come back as the minimizer in
+the same structure, each leaf a numpy array in its own dtype.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import torch
 
-from . import config
+from . import _pytree, config
 from .optimizer import dogleg as _dogleg
 from .optimizer import levenberg_marquardt as _lm
 from .optimizer.base import AbstractOptimizer, Dogleg, LevenbergMarquardt, resolve
 from .optimizer.common import Options, resolve_tolerances, validate_bounds
-from .problem import LeastSquaresProblem, least_squares_problem
-from .result import LeastSquaresResult, result_from_raw
+from .problem import (
+    LeastSquaresProblem,
+    is_structured,
+    least_squares_problem,
+    ravel_parameters,
+)
+from .result import LeastSquaresResult, result_from_raw, _np
 
 __all__ = ["solve", "optimize", "optimize_problem", "polish"]
 
@@ -103,8 +112,10 @@ def optimize_problem(
     src/types.jl:207-209).
 
     ``x0`` overrides the problem's start (pass a previous minimizer to
-    resume). Tolerances of None pick dtype-scaled defaults (1e-8 in
-    float64; config.default_tolerances). ``restarts=k`` re-solves up to k
+    resume); for a problem with structured parameters it may be given in
+    that structure, and it is raveled as the problem's start was.
+    Tolerances of None pick dtype-scaled defaults (1e-8 in float64;
+    config.default_tolerances). ``restarts=k`` re-solves up to k
     times from the minimizer when the stop was certified by the f- or
     x-criterion only, as the JAX package does; work counters add up over
     the restarts.
@@ -117,8 +128,13 @@ def optimize_problem(
         radius=radius, store_trace=store_trace, show_trace=show_trace,
         show_every=show_every,
     )
-    start = problem.x0 if x0 is None else torch.as_tensor(
-        x0, dtype=problem.x0.dtype, device=problem.x0.device)
+    if x0 is None:
+        start = problem.x0
+    elif problem.unravel is not None:
+        start = ravel_parameters(x0, problem.x0.device)[0].to(
+            dtype=problem.x0.dtype, device=problem.x0.device)
+    else:
+        start = torch.as_tensor(x0, dtype=problem.x0.dtype, device=problem.x0.device)
     lower, upper = validate_bounds(start, lower, upper)
     _check_initial_bounds(start, lower, upper)
     optimizer = resolve(optimizer, problem)
@@ -152,7 +168,13 @@ def optimize_problem(
         "LevenbergMarquardt" if isinstance(optimizer, LevenbergMarquardt)
         else "Dogleg"
     )
-    return result_from_raw(raw, opts)
+    result = result_from_raw(raw, opts)
+    if problem.unravel is not None:
+        # The minimizer in the user's parameter structure.
+        leaves, spec = _pytree.flatten(problem.unravel(raw["minimizer"]))
+        result = dataclasses.replace(
+            result, minimizer=_pytree.unflatten(spec, [_np(v) for v in leaves]))
+    return result
 
 
 def optimize(
@@ -169,11 +191,13 @@ def optimize(
     device=None,
     **kwargs,
 ) -> LeastSquaresResult:
-    """Minimize sum(f(x)^2) from the vector ``x0`` (reference: optimize,
+    """Minimize sum(f(x)^2) from ``x0`` (reference: optimize,
     src/types.jl:182-184); ``kwargs`` go to ``optimize_problem``. The
     defaults follow the reference: a dense Jacobian gets ``Dogleg(QR())``.
-    A tensor ``x0`` keeps its device; numpy or list ``x0`` goes to
-    the current CUDA device or to ``device``.
+    ``x0`` is a vector or structured parameters (problem.py): ``f`` sees
+    them in their structure and the minimizer comes back in it. A tensor
+    ``x0`` keeps its device; numpy or list ``x0`` goes to the current
+    CUDA device or to ``device``.
 
     ``loss``/``f_scale`` select a robust loss (loss.py): the objective
     becomes sum(f_scale^2 rho((f_i/f_scale)^2)) and the reported ssr is
@@ -205,16 +229,23 @@ def polish(f, x, optimizer=None, **kwargs) -> LeastSquaresResult:
     """Refine a minimizer in float64: the mixed-precision finish.
 
     Run the bulk solve in float32, then hand its minimizer to a short
-    float64 refinement that starts at an already converged point. ``x`` is
-    cast to float64 on its own device (numpy or list ``x`` goes where
-    ``optimize`` sends it). ``f`` must compute in float64 when given
+    float64 refinement that starts at an already converged point. ``x``
+    (a vector or structured parameters) is cast to float64 leaf by leaf,
+    each on its own device (numpy or list data goes where ``optimize``
+    sends it). ``f`` must compute in float64 when given
     float64 inputs: data closed over in float32 carries only float32
     information. Accepts every ``optimize`` keyword.
     """
-    if isinstance(x, torch.Tensor):
-        x64 = x.detach().to(torch.float64)
-    else:
-        import numpy as np
+    import numpy as np
 
-        x64 = np.asarray(x, np.float64)
+    def to64(leaf):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.detach().to(torch.float64)
+        return np.asarray(leaf, np.float64)
+
+    if is_structured(x):
+        leaves, spec = _pytree.flatten(x)
+        x64 = _pytree.unflatten(spec, [to64(leaf) for leaf in leaves])
+    else:
+        x64 = to64(x)
     return optimize(f, x64, optimizer, **kwargs)

@@ -7,8 +7,10 @@ the LM or Dogleg loop pieces then step the whole batch at once. A fit that
 is done is frozen: its carry leaves keep their values while the others
 move on. Box bounds are shared by every fit; the bounded step pins each
 fit on its own (``torch.where`` only, optimizer/common.py). A matrix-free
-batch (``materialize_jacobian=False``) runs with BlockCholesky; batched
-LSMR is not ported.
+batch (``materialize_jacobian=False``) runs with LSMR (the batched
+recurrences of ``ops/lsmr_core.py``, each fit stopping on its own rule)
+or BlockCholesky; geodesic LM and ``autodiff="reverse"`` / ``"central"``
+run per fit as for one.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from ._device import data_device
 from .api import _check_initial_bounds
 from .optimizer.common import Options, validate_bounds
-from .problem import least_squares_problem
+from .problem import _batched_problem
 
 
 def solve_batch(
@@ -82,7 +84,9 @@ def solve_batch(
         from .solver.base import Cholesky
 
         optimizer = Dogleg(Cholesky())
-    x0_batch = torch.as_tensor(x0_batch, device=data_device(x0_batch, device))
+    # Contiguous: torch.func.jvp refuses an expanded primal.
+    x0_batch = torch.as_tensor(
+        x0_batch, device=data_device(x0_batch, device)).contiguous()
     lower, upper = validate_bounds(x0_batch, lower, upper)
     # Reference: 'Initial guess must be within bounds'
     # (levenberg_marquardt.jl:49-51); one host read for the whole batch.
@@ -96,14 +100,16 @@ def solve_batch(
         # Without a quorum every fit runs to its own stop: the lockstep
         # loop with the whole batch as quorum.
         min_converged_fraction = 1.0
-    if data_batch is None:
-        residual = torch.func.vmap(f)
-    else:
-        fb = torch.func.vmap(f, in_dims=(0, data_axis))
-        residual = lambda x: fb(x, data_batch)  # noqa: E731
-    return _solve_batch_fraction(
-        residual, x0_batch, optimizer, opts, output_length, autodiff,
-        materialize_jacobian, float(min_converged_fraction), fused,
+    if x0_batch.shape[0] == 0:
+        raise ValueError(
+            "solve_batch got an empty batch (x0_batch.shape[0] == 0)"
+        )
+    problem = _batched_problem(
+        f, x0_batch, data_batch, data_axis, output_length=output_length,
+        autodiff=autodiff, materialize_jacobian=materialize_jacobian,
+    )
+    return _solve_lockstep(
+        problem, optimizer, opts, float(min_converged_fraction), fused,
         stop_check_every, lower, upper,
     )
 
@@ -121,38 +127,26 @@ def _validate_stop_check_every(k):
         raise ValueError(f"stop_check_every={k} exceeds the cap of 64")
 
 
-def _solve_batch_fraction(
-    residual, x0_batch, optimizer, opts, output_length, autodiff,
-    materialize_jacobian, frac, fused=None, stop_check_every=1,
+def _solve_lockstep(
+    problem, optimizer, opts, frac=1.0, fused=None, stop_check_every=1,
     lower=None, upper=None,
 ):
-    """Fraction-stop lockstep loop over the batched residual; stops when
-    >= frac of the batch is done. ``lower``/``upper`` are (n,) tensors
-    shared by every fit (or None)."""
+    """Fraction-stop lockstep loop over a batched problem (``problem.x0``
+    of shape (B, n)); stops when >= frac of the batch is done.
+    ``lower``/``upper`` are (n,) tensors shared by every fit (or None).
+    The row-sharded batch of ``parallel/sharded.py`` runs here too."""
     from .optimizer import dogleg as _dogleg
     from .optimizer import levenberg_marquardt as _lm
     from .optimizer.base import Dogleg, LevenbergMarquardt, resolve
 
-    if x0_batch.shape[0] == 0:
-        raise ValueError(
-            "solve_batch got an empty batch (x0_batch.shape[0] == 0)"
-        )
-    problem = least_squares_problem(
-        residual, x0_batch, output_length=output_length, autodiff=autodiff,
-        materialize_jacobian=materialize_jacobian,
-    )
+    x0_batch = problem.x0
     optimizer = resolve(optimizer, problem)
     if fused is None:
         fused = False  # same default as the JAX package's api.solve
     if isinstance(optimizer, LevenbergMarquardt):
-        if optimizer.geodesic:
-            raise NotImplementedError(
-                "geodesic acceleration in batched solves is not ported "
-                "yet; it runs for one fit (solve / optimize)"
-            )
         pieces = _lm.loop_pieces(
             problem, optimizer.solver, opts, lower, upper, x0_batch,
-            fused=fused,
+            fused=fused, geodesic=optimizer.geodesic,
         )
     elif isinstance(optimizer, Dogleg):
         pieces = _dogleg.loop_pieces(
@@ -180,7 +174,8 @@ def _solve_batch_fraction(
         # Fits freeze at their own iteration every step; only the quorum
         # check (one sync) is k-granular.
         for _ in range(stop_check_every):
-            new = body_fn(carry)
+            # Done fits enter an inner LSMR solve frozen.
+            new = body_fn(carry, live=active)
             carry = {k: freeze(v, new[k], active) for k, v in carry.items()}
             active = cond_fn(carry)
         ndone = int((~active).sum())  # device-to-host sync

@@ -7,10 +7,20 @@ stopping rules in the same priority. Per iteration there are exactly two
 operator applications (matvec / rmatvec) and two norms.
 
 The JAX package runs the iteration as one ``lax.while_loop``; here it is a
-Python loop whose scalars are 0-d tensors on the data's device, in the
-data's dtype. The stop test reads the six rule flags back to the host once
-per iteration (one device-to-host read), plus one read of ``||A'b||``
-before the loop.
+Python loop whose scalars are tensors on the data's device, in the data's
+dtype. One fit (x0 of shape (n,)) carries 0-d scalars: the stop test reads
+the six rule flags back to the host once per iteration (one device-to-host
+read), plus one read of ``||A'b||`` before the loop.
+
+A batch of fits (x0 of shape (B, n), every u-space leaf (B, m)) is what
+the JAX package runs under ``jax.vmap``: every recurrence scalar is a (B,)
+tensor, each fit takes the strongest of the seven rules on its own, and a
+fit freezes at its own ``istop`` while the others go on (``torch.where``
+over the carry). Each iteration reads one flag back to the host: whether
+any fit still runs. ``iterations``, ``istop`` and the norm estimates are
+(B,) tensors. ``live`` (B,) marks the fits to solve: the rest start
+frozen at x0 with ``istop`` 0, which changes no live fit's result (the
+JAX package runs them too and its caller discards them).
 
 The operator's *range* space ("u-space") may be a tensor or a tuple of
 tensors. The damped LM system [J; diag(d)] x = [y; 0] is then an operator
@@ -42,23 +52,30 @@ def _t_map(fn, *xs):
 
 
 def _t_normsq(x):
-    """Squared 2-norm of a u-space vector (local sum over every leaf)."""
+    """Squared 2-norm of a u-space vector per fit (local sum over the last
+    axis of every leaf)."""
     total = None
     for leaf in _leaves(x):
-        s = torch.sum(leaf * leaf)
+        s = torch.sum(leaf * leaf, dim=-1)
         total = s if total is None else total + s
     return total
 
 
-class LSMRStats(NamedTuple):
-    """Counterpart of the reference ConvergenceHistory (lsmr.jl:9-14). The
-    loop runs on the host, so the counters are Python values; the two norm
-    estimates stay 0-d tensors on the data's device."""
+def _col(s):
+    """A per-fit scalar ((), or (B,)) against a per-fit vector."""
+    return s.unsqueeze(-1)
 
-    converged: bool        # istop not in (3, 6, 7)
-    istop: int             # stopping rule index (0 = never entered loop)
-    iterations: int
-    mvps: int              # = 2 * iterations (lsmr.jl:236)
+
+class LSMRStats(NamedTuple):
+    """Counterpart of the reference ConvergenceHistory (lsmr.jl:9-14). For
+    one fit the loop runs on the host, so the counters are Python values;
+    for a batch they are (B,) tensors. The two norm estimates are tensors
+    on the data's device."""
+
+    converged: Any         # istop not in (3, 6, 7)
+    istop: Any             # stopping rule index (0 = never entered loop)
+    iterations: Any
+    mvps: Any              # = 2 * iterations (lsmr.jl:236)
     normr: torch.Tensor    # final ||r|| estimate
     normar: torch.Tensor   # final ||A'r|| estimate
 
@@ -75,13 +92,16 @@ def lsmr(
     conlim: float = 1e8,
     lam: float = 0.0,
     normsq: Optional[Callable[[Any], torch.Tensor]] = None,
+    live: Optional[torch.Tensor] = None,
 ):
     """Solve min ||A x - b||^2 + lam^2 ||x||^2 iteratively.
 
     ``matvec(v)`` maps a flat (n,) vector into u-space (a tensor or a tuple
     of tensors); ``rmatvec(u)`` maps u-space back to a flat (n,) vector.
     ``normsq(u)`` is the squared norm of a u-space vector (default: the
-    local sum of squares over every leaf).
+    local sum of squares over every leaf). With x0 of shape (B, n) every
+    vector carries the batch axis in front and the fits stop on their own
+    (see the module); ``live`` applies to a batch only.
 
     Returns ``(x, LSMRStats)``.
     """
@@ -103,11 +123,11 @@ def lsmr(
     # (reference: lsmr.jl:73-78).
     u = _t_map(lambda ax, bi: bi - ax, matvec(x0), b)
     beta = torch.sqrt(normsq(u))
-    scale = inverse_or_zero(beta)
+    scale = _col(inverse_or_zero(beta))
     u = _t_map(lambda ui: scale * ui, u)
     v = rmatvec(u)
-    alpha = torch.sqrt(torch.sum(v * v))
-    v = v * inverse_or_zero(alpha)
+    alpha = torch.sqrt(torch.sum(v * v, dim=-1))
+    v = v * _col(inverse_or_zero(alpha))
 
     zetabar = alpha * beta
     normb = beta
@@ -130,17 +150,17 @@ def lsmr(
 
     def body(c, it):
         # --- bidiagonalization step (lsmr.jl:118-125) ---
-        alpha_old = c["alpha"]
+        alpha_old = _col(c["alpha"])
         u_new = _t_map(lambda av, ui: av - alpha_old * ui, matvec(c["v"]), c["u"])
         beta = torch.sqrt(normsq(u_new))
         has_beta = beta > 0
-        scale = inverse_or_zero(beta)
+        scale = _col(inverse_or_zero(beta))
         u = _t_map(lambda ui: scale * ui, u_new)
-        v_new = rmatvec(u) - beta * c["v"]
-        alpha_new = torch.linalg.vector_norm(v_new)
-        v_cand = v_new * inverse_or_zero(alpha_new)
-        v = torch.where(has_beta, v_cand, c["v"])
-        alpha = torch.where(has_beta, alpha_new, alpha_old)
+        v_new = rmatvec(u) - _col(beta) * c["v"]
+        alpha_new = torch.linalg.vector_norm(v_new, dim=-1)
+        v_cand = v_new * _col(inverse_or_zero(alpha_new))
+        v = torch.where(_col(has_beta), v_cand, c["v"])
+        alpha = torch.where(has_beta, alpha_new, c["alpha"])
 
         # --- rotation Qhat (regularization lam) (lsmr.jl:127-130) ---
         alphahat = torch.sqrt(c["alphabar"] * c["alphabar"] + lam * lam)
@@ -167,9 +187,9 @@ def lsmr(
         zetabar = -sbar * c["zetabar"]
 
         # --- update h, hbar, x (lsmr.jl:151-156) ---
-        hbar = c["h"] + (-thetabar * rho / (rhoold * rhobarold)) * c["hbar"]
-        x = c["x"] + (zeta / (rho * rhobar)) * hbar
-        h = v + (-thetanew / rho) * c["h"]
+        hbar = c["h"] + _col(-thetabar * rho / (rhoold * rhobarold)) * c["hbar"]
+        x = c["x"] + _col(zeta / (rho * rhobar)) * hbar
+        h = v + _col(-thetanew / rho) * c["h"]
 
         # --- ||r|| estimate (lsmr.jl:158-184) ---
         betaacute = chat * c["betadd"]
@@ -199,7 +219,7 @@ def lsmr(
 
         # --- stopping rules (lsmr.jl:204-231) ---
         normar = torch.abs(zetabar)
-        normx = torch.linalg.vector_norm(x)
+        normx = torch.linalg.vector_norm(x, dim=-1)
         test1 = normr / normb
         test2 = normar / (norma * normr)
         test3 = 1.0 / conda
@@ -223,6 +243,8 @@ def lsmr(
         )
         return new, rules
 
+    if x0.ndim > 1:
+        return _batched_loop(c, body, normar0, maxiter, live)
     it, istop = 0, 0
     # normar0 == 0 (b = 0 or A'b = 0): x0 is the answer, zero iterations
     # (reference: lsmr.jl:115).
@@ -241,6 +263,48 @@ def lsmr(
         istop=istop,
         iterations=it,
         mvps=2 * it,
+        normr=c["normr"],
+        normar=c["normar"],
+    )
+    return c["x"], stats
+
+
+def _batched_loop(c, body, normar0, maxiter, live):
+    """The iteration of a batch of fits (see the module): each fit takes
+    the strongest rule that fired, in the reference's priority, and
+    freezes from then on. Live fits all start at the first iteration, so
+    the host's count is every running fit's own."""
+    running = normar0 != 0
+    if live is not None:
+        running = running & live
+    istop = torch.zeros(running.shape, dtype=torch.int32, device=running.device)
+    its = torch.zeros_like(istop)
+
+    def freeze(old, new, run):
+        if isinstance(old, tuple):
+            return tuple(freeze(o, n_, run) for o, n_ in zip(old, new))
+        mask = run.reshape(run.shape + (1,) * (new.ndim - run.ndim))
+        return torch.where(mask, new, old)
+
+    it = 0
+    # One device-to-host read per iteration: does any fit still run?
+    while maxiter > 0 and bool(running.any()):
+        it += 1
+        new, rules = body(c, it)
+        code = torch.zeros_like(istop)
+        for rule in range(6):
+            code = torch.where(rules[rule], rule + 1, code)
+        if it >= maxiter:
+            code = torch.full_like(code, 7)
+        c = {k: freeze(v, new[k], running) for k, v in c.items()}
+        istop = torch.where(running, code, istop)
+        its = its + running.to(torch.int32)
+        running = running & (code == 0)
+    stats = LSMRStats(
+        converged=(istop != 3) & (istop != 6) & (istop != 7),
+        istop=istop,
+        iterations=its,
+        mvps=2 * its,
         normr=c["normr"],
         normar=c["normar"],
     )

@@ -168,7 +168,8 @@ def _default_colnorms2(jvp_fn, rmatvec, m: int, n: int, dtype, x_lin,
         return colnorms2, None
 
     if batch:
-        return (lambda: _batched_probe_estimate(rmatvec, m, dtype, x_lin)), None
+        return (lambda: _batched_probe_estimate(
+            rmatvec, m, dtype, x_lin, probe_salt, reduce)), None
 
     def colnorms2():
         return _probe_estimate(0, _HUTCHINSON_PROBES, int(_bits_sum()))
@@ -201,7 +202,8 @@ def _hash32(v):
     return (v >> 16) ^ v
 
 
-def _batched_probe_estimate(rmatvec, m: int, dtype, x_lin):
+def _batched_probe_estimate(rmatvec, m: int, dtype, x_lin, salt: int = 0,
+                            reduce=None):
     """Hutchinson estimate of diag(J'J) for each fit of a batch (x_lin
     (..., n)), from a full set of ``_HUTCHINSON_PROBES`` probes. Each fit's
     Rademacher signs hash its own seed, folded from the bits of its row of
@@ -209,16 +211,21 @@ def _batched_probe_estimate(rmatvec, m: int, dtype, x_lin):
     probes, on the CPU and on the card alike, and no value is read back to
     the host. (The single-fit estimate's ``torch.Generator`` streams differ
     between devices.) The batch takes a full probe set at every fresh
-    linearization, as the JAX package's batched solve does."""
+    linearization, as the JAX package's batched solve does. ``salt`` (a
+    row-sharded process's rank) gives each process's rows signs of their
+    own, and ``reduce`` completes each product over the processes."""
     k = _HUTCHINSON_PROBES
     batch = tuple(x_lin.shape[:-1])
     bits = x_lin.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
-    seed = _hash32(torch.sum(bits & 0xFFFFFFFF, dim=-1) & 0xFFFFFFFF)
+    folded = torch.sum(bits & 0xFFFFFFFF, dim=-1) + salt * (_SALT_STRIDE & 0xFFFFFFFF)
+    seed = _hash32(folded & 0xFFFFFFFF)
     counter = torch.arange(k * m, device=x_lin.device).reshape(
         (k,) + (1,) * len(batch) + (m,))
     h = _hash32((seed.unsqueeze(-1) + counter) & 0xFFFFFFFF)  # (k, ..., m)
     z = ((h & 1) * 2 - 1).to(dtype)
     cols = torch.func.vmap(rmatvec)(z)  # (k, ..., n)
+    if reduce is not None:
+        cols = reduce(cols.contiguous())
     return torch.mean(cols * cols, dim=0)
 
 

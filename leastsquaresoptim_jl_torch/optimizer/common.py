@@ -254,18 +254,3 @@ def seed_eval(sched: EvalSchedule, problem, x):
             f"expected {problem.m}"
         )
     return fcur, gram0, grhs0, jstate0, jac0
-
-
-def require_single_fit_if_matrix_free(problem, x, solver_tag):
-    """A batch of matrix-free fits runs with BlockCholesky only; batched
-    LSMR (a per-fit inner stop in one loop) is not ported."""
-    from ..solver.base import BlockCholesky
-
-    if (not problem.materialize_jacobian and x.ndim != 1
-            and not isinstance(solver_tag, BlockCholesky)):
-        raise NotImplementedError(
-            "batched matrix-free solves with LSMR are not ported yet: a "
-            "problem with materialize_jacobian=False takes one flat x, got "
-            f"shape {tuple(x.shape)}; a batch of them runs with "
-            "BlockCholesky()"
-        )

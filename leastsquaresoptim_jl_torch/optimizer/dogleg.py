@@ -33,8 +33,8 @@ with another solver, which carries J from the accepted trial evaluation.
 
 Outside Gram space the block sees the Jacobian as an operator
 (ops/operators.py): column norms, ``J'f``, ``||J dgr||^2`` through one
-matvec, and the solver's Gauss-Newton step. A matrix-free problem (a batch
-of them with BlockCholesky only) never forms J, and a row-sharded one
+matvec, and the solver's Gauss-Newton step. A matrix-free problem (one
+fit or a batch) never forms J, and a row-sharded one
 completes its sums over rows through ``ops/linalg.row_sum``. A sparse
 Jacobian evaluated at the start serves the first iteration's block.
 """
@@ -68,7 +68,6 @@ from .common import (
     assess_convergence,
     build_eval_schedule,
     init_trace,
-    require_single_fit_if_matrix_free,
     resolve_tolerances,
     seed_eval,
     update_trace,
@@ -105,7 +104,6 @@ def loop_pieces(
     carry_fcur, ssr_carry = sched.carry_fcur, sched.ssr_carry
 
     x = problem.x0 if x0 is None else x0
-    require_single_fit_if_matrix_free(problem, x, solver_tag)
     dt = x.dtype
     batch_shape = tuple(x.shape[:-1])
     x_tol, f_tol, g_tol = resolve_tolerances(opts, dt)
@@ -166,7 +164,7 @@ def loop_pieces(
             & torch.isfinite(c["x"]).all(dim=-1)
         )
 
-    def expensive(c, x):
+    def expensive(c, x, live=None):
         """The expensive block (reference :85-117): linearization, dtd,
         gradient and KKT measure, scaled steepest descent, Cauchy length,
         Gauss-Newton step. Fused: the Jacobian information arrived with the
@@ -202,7 +200,7 @@ def loop_pieces(
         else:
             jdgr = op.matvec(dgr)
             jdgr_sq = row_sum(jdgr * jdgr, reduce)
-            dgn, ls_iter, istop_gn = solve_gn(op, fcur)
+            dgn, ls_iter, istop_gn = solve_gn(op, fcur, live)
         return dict(
             G=G, b=b, fcur=fcur, op=op, dtd=dtd, istop=istop_gn,
             maxabs_gr=maxabs_projected_gradient(g, x, lower, upper),
@@ -211,17 +209,18 @@ def loop_pieces(
             dgn=dgn, wnorm_dgn=wnorm(dgn, dtd), ls_iter=ls_iter,
         )
 
-    def body_fn(c, reuse=None):
+    def body_fn(c, reuse=None, live=None):
         """One iteration. ``reuse`` is the carry's reuse flag read on the
         host: True takes the expensive block from the carry, False
         computes it (and carries it for the next iteration). None (the
         batch loop, whose flag is per fit) computes it unconditionally
         and carries no block: x is unchanged on a rejected step, so the
-        recomputed block equals the reused one."""
+        recomputed block equals the reused one. ``live`` (a batch's
+        running fits) goes to the inner solves."""
         it = c["it"] + 1
         x, ssr = c["x"], c["ssr"]
         jstate = c["jstate"] if (fused_gram or fused_flat) else x
-        blk = c["block"] if reuse else expensive(c, x)
+        blk = c["block"] if reuse else expensive(c, x, live)
         G, b, fcur, op, dtd = blk["G"], blk["b"], blk["fcur"], blk["op"], blk["dtd"]
         maxabs_gr, dgr, wnorm_dgr = blk["maxabs_gr"], blk["dgr"], blk["wnorm_dgr"]
         alpha, dgn, wnorm_dgn = blk["alpha"], blk["dgn"], blk["wnorm_dgn"]
@@ -268,7 +267,7 @@ def loop_pieces(
                 if fused_gram:
                     # J'(f - J dx_a) = b - G dx_a
                     return solve_spd_system(G, b - _gmatvec(G, dx_a), damp2), 1
-                dgn2, it2, _ = solve_damped(op, fcur - op.matvec(dx_a), damp2)
+                dgn2, it2, _ = solve_damped(op, fcur - op.matvec(dx_a), damp2, live)
                 return dgn2, it2
 
             def combine(dx_a, free):

@@ -25,8 +25,8 @@ solver carries J. Box bounds clip the step and refine it on the active set
 (common.active_set_refinement).
 
 The inner solve sees the Jacobian as an operator (ops/operators.py). A
-matrix-free problem (``materialize_jacobian=False``; a batch of them with
-BlockCholesky only) never forms J: the operator is built at each fresh
+matrix-free problem (``materialize_jacobian=False``, one fit or a batch)
+never forms J: the operator is built at each fresh
 linearization point and rides the carry across rejected steps, together
 with the raw damping diagonal ``dtd_raw``; a fresh linearization refreshes
 that diagonal through the operator's ``colnorms2_update`` (a few
@@ -41,7 +41,13 @@ all-reduce.
 Geodesic acceleration (``geodesic=True``; Transtrum & Sethna 2012): the
 step gets half the second-order correction ``acc``, which solves the same
 damped system with f''[dx, dx] as right side (forward over forward JVP),
-kept only while ``||acc|| <= GEODESIC_ALPHA ||dx||``.
+kept only while ``||acc|| <= GEODESIC_ALPHA ||dx||``. On a batch every
+fit takes its own acceleration and its own guard.
+
+On a batch, an LSMR inner solve stops per fit: ``mul_calls`` adds each
+fit's own inner iterations and ``inner_istop`` is each fit's own stop, as
+under the JAX package's ``vmap``. The batch loop passes ``live``, the fits
+still running, so that done fits enter the inner solve frozen.
 """
 
 from __future__ import annotations
@@ -73,7 +79,6 @@ from .common import (
     assess_convergence,
     build_eval_schedule,
     init_trace,
-    require_single_fit_if_matrix_free,
     resolve_tolerances,
     seed_eval,
     update_trace,
@@ -86,8 +91,11 @@ def _gmatvec(G, v):
 
 
 def istop_leaf(carried, istop):
-    """The carry leaf for an inner solve's stop reason (a host int). A
-    direct solver's is the constant the carry starts with."""
+    """The carry leaf for an inner solve's stop reason: a host int for one
+    fit, a per-fit tensor for a batched LSMR solve. A direct solver's is
+    the constant the carry starts with."""
+    if isinstance(istop, torch.Tensor):
+        return istop.to(carried.dtype)
     return carried if istop == ISTOP_DIRECT else torch.full_like(carried, istop)
 
 
@@ -117,7 +125,6 @@ def loop_pieces(
     carry_fcur, ssr_carry = sched.carry_fcur, sched.ssr_carry
 
     x = problem.x0 if x0 is None else x0
-    require_single_fit_if_matrix_free(problem, x, solver_tag)
     dt = x.dtype
     batch_shape = tuple(x.shape[:-1])
     x_tol, f_tol, g_tol = resolve_tolerances(opts, dt)
@@ -182,10 +189,11 @@ def loop_pieces(
             & torch.isfinite(c["x"]).all(dim=-1)
         )
 
-    def body_fn(c, reuse=None):
+    def body_fn(c, reuse=None, live=None):
         """One iteration. ``reuse`` is the carry's ``~need_jacobian`` read
         on the host (True: take the linearization from the carry; False:
-        evaluate and carry it), or None to evaluate unconditionally."""
+        evaluate and carry it), or None to evaluate unconditionally.
+        ``live`` (a batch's running fits) goes to the inner solves."""
         it = c["it"] + 1
         x, ssr = c["x"], c["ssr"]
         delta = c["delta"]
@@ -246,7 +254,7 @@ def loop_pieces(
             dx = solve_spd_system(G, b, damp)
             lmiter, inner_istop = 1, ISTOP_DIRECT
         else:
-            dx, lmiter, inner_istop = solve_damped(op, fcur, damp)
+            dx, lmiter, inner_istop = solve_damped(op, fcur, damp, live)
         mul_calls = c["mul_calls"] + lmiter
 
         if geodesic:
@@ -267,7 +275,7 @@ def loop_pieces(
                 acc = solve_spd_system(G, vjp_fn(fvv)[0], damp)
                 acc_iters = 2  # one J' apply + one solve
             else:
-                acc, acc_iters, _ = solve_damped(op, fvv, damp)
+                acc, acc_iters, _ = solve_damped(op, fvv, damp, live)
             use_acc = sumabs2(acc) <= config.GEODESIC_ALPHA**2 * sumabs2(dx)
             dx = torch.where(use_acc.unsqueeze(-1), dx + 0.5 * acc, dx)
             mul_calls = mul_calls + acc_iters
@@ -279,7 +287,7 @@ def loop_pieces(
                 if fused_gram:
                     # J'(f - J dx_a) = b - G dx_a
                     return solve_spd_system(G, b - _gmatvec(G, dx_a), damp2), 1
-                dx2, it2, _ = solve_damped(op, fcur - op.matvec(dx_a), damp2)
+                dx2, it2, _ = solve_damped(op, fcur - op.matvec(dx_a), damp2, live)
                 return dx2, it2
 
             dx, lmiter2 = active_set_refinement(

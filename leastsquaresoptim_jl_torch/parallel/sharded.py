@@ -16,6 +16,15 @@ sums.
    actual and predicted reductions, J'u, the column norms and LSMR's
    range-space norms.
 
+   ``x0`` of shape (B, n) with local rows of shape (B, m_local, ...) is
+   the batch x rows layout (the JAX package's ``("batch", "rows")`` mesh,
+   tests/test_sharding.py:140): the residual is vmapped over fits and
+   rows, ``row_reduce`` sums a (B,) vector or a (B, n) block over the
+   group (still two all-reduces per LSMR iteration), and the batch runs
+   in the lockstep batch driver. The batch axis across processes is the
+   caller's: each batch group of a 2-D process grid (``dist.new_group``)
+   calls ``solve_sharded`` with its own ``group`` and its own fits.
+
 2. **Explicit pieces** (``sharded_gram_and_rhs``, ``make_sharded_operator``):
    each process forms the Gram products of its local rows (optionally with
    the Gram kernel) and one all-reduce per product gives every process the
@@ -68,6 +77,10 @@ def sharded_problem(
     (optional, this process's rows) scales rows; use 0.0 to mask padding
     rows. ``x0`` is the same on every process.
 
+    A batch of fits: ``x0`` of shape (B, n), every data leaf (and
+    ``weights``) with the batch axis in front of the rows, (B, m_local,
+    ...); fit b's residual is its own rows against x0[b].
+
     The residual function vmaps over the local rows. The problem is
     matrix-free: ``m`` is the global row count and ``row_reduce`` sums over
     the processes of ``group`` (default: the default group).
@@ -77,17 +90,24 @@ def sharded_problem(
         else list(data_local) if isinstance(data_local, (tuple, list))
         else [data_local]
     )
-    x0 = torch.as_tensor(x0, device=data_device(leaves[0], device))
+    # Contiguous: torch.func.jvp refuses an expanded primal.
+    x0 = torch.as_tensor(x0, device=data_device(leaves[0], device)).contiguous()
     reduce = _all_reduce_sum(group)
 
+    def rows_of_one_fit(x, rows):
+        return torch.func.vmap(lambda row: per_row_residual(x, row))(rows)
+
+    batched = x0.ndim > 1
+    local = torch.func.vmap(rows_of_one_fit) if batched else rows_of_one_fit
+
     def residual_fn(x):
-        r = torch.func.vmap(lambda row: per_row_residual(x, row))(data_local)
+        r = local(x, data_local)
         return r if weights is None else r * weights
 
     return LeastSquaresProblem(
         residual_fn=residual_fn,
         x0=x0,
-        m=_global_rows(int(leaves[0].shape[0]), x0.device, reduce),
+        m=_global_rows(int(leaves[0].shape[int(batched)]), x0.device, reduce),
         jac_fn=None,
         materialize_jacobian=False,
         row_reduce=reduce,
@@ -114,15 +134,23 @@ def solve_sharded(
     Matrix-free by construction (the (m, n) Jacobian is never formed); the
     default ``LevenbergMarquardt(LSMR())`` uses distributed matvecs. For
     small n a materialized row-sharded J with ``sharded_gram_and_rhs`` is
-    the normal-equations alternative.
+    the normal-equations alternative. ``x0`` of shape (B, n) solves a
+    batch of fits (see ``sharded_problem``) through the lockstep batch
+    driver, each fit to its own stop; the result leads with the batch.
     """
     from ..api import solve
+    from ..batch import _solve_lockstep
+    from ..optimizer.common import Options, validate_bounds
 
     problem = sharded_problem(
         per_row_residual, data_local, x0, group=group, weights=weights,
         device=device,
     )
-    return solve(problem, optimizer, options=options, lower=lower, upper=upper)
+    if problem.x0.ndim == 1:
+        return solve(problem, optimizer, options=options, lower=lower, upper=upper)
+    lower, upper = validate_bounds(problem.x0, lower, upper)
+    return _solve_lockstep(problem, optimizer, options or Options(),
+                          lower=lower, upper=upper)
 
 
 def sharded_gram_and_rhs(J_local, y_local, group=None,

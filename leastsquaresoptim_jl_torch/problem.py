@@ -8,12 +8,19 @@ functions on tensors:
     jac_fn(x) -> J               x (..., n) -> J (..., m, n)
     res_jac_fn(x) -> (r, J)      one shared primal evaluation
 
-Leading axes of ``x`` are batch axes: each row is an independent fit whose
-residual depends on that row alone (``solve_batch`` builds such a residual
-with ``torch.func.vmap``). That is what lets one forward-mode pass with the
-tangent e_j in every row give column j of every fit's Jacobian. Batches
-take ``autodiff="forward"`` only; one fit (a flat x) also takes reverse
-mode, central differences and a user Jacobian ``g=``.
+``least_squares_problem`` builds one fit. Its ``x`` may be a flat vector or
+structured parameters: a dict, list or tuple of tensors, arrays and
+numbers (nested in any mix), or an array of rank > 1. Those are raveled
+into the flat vector the solvers work in (``_pytree.ravel``, the
+counterpart of ``jax.flatten_util.ravel_pytree``); ``f`` sees the original
+structure and the problem carries ``unravel``.
+
+The batch driver builds its own problem with ``_batched_problem``: x of
+shape (B, n), each row an independent fit whose residual depends on that
+row alone (``torch.func.vmap`` of the user's one-fit residual). That is
+what lets one forward-mode pass with the tangent e_j in every row give
+column j of every fit's Jacobian; reverse mode and central differences
+are vmapped per fit.
 
 For matrix-free operation (``materialize_jacobian=False``: LSMR, or
 BlockCholesky) the Jacobian is never formed: ``ops/operators.py`` builds
@@ -26,8 +33,7 @@ problem then has ``jacobian_is_sparse`` set: its solver defaults to LSMR,
 QR and Cholesky are rejected, and no fused evaluation exists
 (``res_jac_fn`` is None). The JAX package finds the sparse layout by an
 abstract evaluation that costs nothing; PyTorch has none, so the
-constructor calls ``g(x0)`` once, outside every work counter. Pytree
-parameters are not ported yet.
+constructor calls ``g(x0)`` once, outside every work counter.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import _pytree
 from ._device import data_device
 from .ops.sparse import is_sparse
 
@@ -135,22 +142,61 @@ class LeastSquaresProblem:
     colnorms_fn: Optional[Callable] = None
     row_reduce: Optional[Callable] = None
     probe_salt: int = 0
+    # Set when the user's parameters are structured: maps the flat solver
+    # vector back to the user's structure (``_pytree.ravel``).
+    unravel: Optional[Callable] = None
 
     @property
     def n(self) -> int:
         return int(self.x0.shape[-1])
 
 
-def _as_parameter_tensor(x, device):
-    """``x`` as a tensor on its device; a pytree of parameters raises."""
-    if isinstance(x, (dict, tuple)) or (
-        isinstance(x, list) and any(isinstance(e, torch.Tensor) for e in x)
-    ):
-        raise NotImplementedError(
-            "pytree parameters (a dict, tuple or list of tensors as x) are "
-            "not ported yet; pass one flat vector"
+def _is_scalar(e) -> bool:
+    return isinstance(e, (int, float, np.generic)) or (
+        isinstance(e, (torch.Tensor, np.ndarray)) and e.ndim == 0)
+
+
+def is_structured(x) -> bool:
+    """A dict, or a list or tuple that is not a flat run of numbers."""
+    return isinstance(x, dict) or (
+        isinstance(x, (list, tuple)) and not all(_is_scalar(e) for e in x))
+
+
+def ravel_parameters(x, device):
+    """``(flat, unravel)``: one fit's parameters as a flat tensor, and the
+    map back to the user's structure (None for a flat vector). A dict, a
+    list or tuple that is not a flat run of numbers, and an array of rank
+    > 1 are structured, as in the JAX package (where ``jnp.asarray`` fails
+    or gives rank > 1). A tensor keeps its device; other data goes to the
+    current CUDA device or to ``device``."""
+    if not is_structured(x):
+        x = torch.as_tensor(x, device=data_device(x, device))
+        if x.ndim <= 1:
+            return x, None
+    anchor = _pytree.first_tensor(x)
+    return _pytree.ravel(x, data_device(x if anchor is None else anchor, device))
+
+
+def _one_fit_residual(f: Callable) -> Callable:
+    """A residual of one fit as a vector: a scalar is wrapped to length 1
+    (the reference's regression test, test/runtests.jl:43-46) and a
+    multi-dimensional grid is flattened."""
+
+    def residual_fn(*args):
+        r = f(*args)
+        if r.ndim == 0:
+            return r.unsqueeze(0)
+        return r.reshape(-1) if r.ndim > 1 else r
+
+    return residual_fn
+
+
+def _check_autodiff(autodiff):
+    if autodiff not in ("forward", "reverse", "central"):
+        raise ValueError(
+            f"Invalid automatic differentiation method {autodiff!r}; "
+            "expected 'forward', 'reverse' or 'central'."
         )
-    return torch.as_tensor(x, device=data_device(x, device))
 
 
 def least_squares_problem(
@@ -163,58 +209,41 @@ def least_squares_problem(
     materialize_jacobian: bool = True,
     device=None,
 ) -> LeastSquaresProblem:
-    """Keyword constructor mirroring the reference problem constructor
-    (src/types.jl:40-68). ``x`` is a tensor of shape (..., n); leading axes
-    are independent fits. A tensor keeps its device; numpy or list ``x``
-    goes to the current CUDA device or to ``device`` (``_device.py``).
-    Without ``output_length`` the residual is evaluated once at ``x`` to
-    find m.
+    """Keyword constructor of one fit, mirroring the reference problem
+    constructor (src/types.jl:40-68). ``x`` is a vector or structured
+    parameters (see the module): ``f`` and ``g`` see them in the user's
+    structure, and results report the minimizer in it. A tensor keeps its
+    device; numpy or list ``x`` goes to the current CUDA device or to
+    ``device`` (``_device.py``). Without ``output_length`` the residual is
+    evaluated once at ``x`` to find m.
 
-    For one fit (a flat x) a scalar residual is wrapped to length 1 and a
-    multi-dimensional one is flattened; ``g(x) -> J`` is a user Jacobian
-    and ``autodiff`` picks forward mode, ``'reverse'`` (``torch.func.jacrev``)
-    or ``'central'`` differences. A ``g`` that returns a sparse tensor makes
-    a sparse problem (see the module); ``g`` is called once here to find
-    out, and its shape is checked at each call.
+    A scalar residual is wrapped to length 1 and a multi-dimensional one
+    is flattened; ``g(x) -> J`` is a user Jacobian and ``autodiff`` picks
+    forward mode, ``'reverse'`` (``torch.func.jacrev``) or ``'central'``
+    differences. A ``g`` that returns a sparse tensor makes a sparse
+    problem (see the module); ``g`` is called once here to find out, and
+    its shape is checked at each call.
     """
     if f is None:
         raise ValueError("residual function f is required")
     if x is None:
         raise ValueError("initial x is required")
-    if autodiff not in ("forward", "reverse", "central"):
-        raise ValueError(
-            f"Invalid automatic differentiation method {autodiff!r}; "
-            "expected 'forward', 'reverse' or 'central'."
-        )
-    x = _as_parameter_tensor(x, device)
-    if x.ndim < 1:
+    _check_autodiff(autodiff)
+    x, unravel = ravel_parameters(x, device)
+    if x.ndim != 1:
         raise ValueError(f"x must be a vector, got shape {tuple(x.shape)}")
-    single = x.ndim == 1
-    if not single and (g is not None or autodiff != "forward"):
-        raise NotImplementedError(
-            "batched problems (x of shape (..., n)) take autodiff='forward' "
-            "only so far; a user Jacobian g= (sparse Jacobians included), "
-            "reverse mode and central differences are ported for one fit"
-        )
-
-    residual_fn = f
-    if single:
-        # Scalar-valued residuals (the reference's regression test,
-        # test/runtests.jl:43-46) and multi-dimensional residual grids.
-        def residual_fn(xx):
-            r = f(xx)
-            if r.ndim == 0:
-                return r.unsqueeze(0)
-            return r.reshape(-1) if r.ndim > 1 else r
-
+    residual_fn = _one_fit_residual(
+        f if unravel is None else (lambda xx: f(unravel(xx))))
     if output_length is None:
         output_length = int(residual_fn(x).shape[-1])
     m, n = int(output_length), int(x.shape[-1])
 
     shares_primal = sparse = False
     if g is not None:
+        user_g = g if unravel is None else (lambda xx: g(unravel(xx)))
+
         def jac_fn(xx):
-            J = g(xx)
+            J = user_g(xx)
             if tuple(J.shape) != (m, n):
                 raise ValueError(
                     f"jacobian function returns shape {tuple(J.shape)}, "
@@ -222,7 +251,7 @@ def least_squares_problem(
                 )
             return J
 
-        sparse = is_sparse(g(x))
+        sparse = is_sparse(user_g(x))
         res_jac_fn = None if sparse else (
             lambda xx: (residual_fn(xx), jac_fn(xx)))
     elif autodiff == "forward":
@@ -242,6 +271,68 @@ def least_squares_problem(
         jac_fn=jac_fn,
         materialize_jacobian=materialize_jacobian,
         jacobian_is_sparse=sparse,
+        res_jac_fn=res_jac_fn,
+        res_jac_shares_primal=shares_primal,
+        unravel=unravel,
+    )
+
+
+def _batched_problem(
+    f: Callable,
+    x0_batch: torch.Tensor,
+    data=None,
+    data_axis=0,
+    *,
+    output_length: Optional[int] = None,
+    autodiff: str = "forward",
+    materialize_jacobian: bool = True,
+    g: Optional[Callable] = None,
+) -> LeastSquaresProblem:
+    """The problem of a batch of independent fits, x0 of shape (B, n):
+    ``f(x)`` or ``f(x, data)`` is written for one fit and mapped over the
+    batch with ``torch.func.vmap`` (``data_axis`` is the data's
+    ``in_dims``). Forward mode takes one pass per column with the tangent
+    e_j in every row; reverse mode is ``vmap(jacrev(f))`` and central
+    differences the one-fit rule vmapped, so that each fit's Jacobian is
+    (m, n), never the (B, m, B, n) one of the whole batch.
+
+    A user Jacobian ``g`` is refused: the JAX package's ``solve_batch``
+    takes none, so none of its entry points reaches a batched ``g=``."""
+    _check_autodiff(autodiff)
+    if g is not None:
+        raise NotImplementedError(
+            "a user Jacobian g= for a batch of fits is not ported: no entry "
+            "point of the JAX package reaches it (its solve_batch takes no "
+            "g=); pass g= for one fit (optimize / least_squares_problem)"
+        )
+    one = _one_fit_residual(f if data is not None else (lambda xx, _: f(xx)))
+    in_dims = (0, data_axis if data is not None else None)
+    batched = torch.func.vmap(one, in_dims=in_dims)
+
+    def residual_fn(xb):
+        return batched(xb, data)
+
+    if output_length is None:
+        output_length = int(residual_fn(x0_batch).shape[-1])
+    shares_primal = autodiff == "forward"
+    if shares_primal:
+        res_jac_fn = _forward_res_jac(residual_fn)
+        jac_fn = lambda xb: res_jac_fn(xb)[1]  # noqa: E731
+    else:
+        if autodiff == "reverse":
+            per_fit = torch.func.jacrev(one)
+        else:
+            def per_fit(xx, d):
+                return _central_difference_jacobian(lambda z: one(z, d))(xx)
+        jac = torch.func.vmap(per_fit, in_dims=in_dims)
+        jac_fn = lambda xb: jac(xb, data)  # noqa: E731
+        res_jac_fn = lambda xb: (residual_fn(xb), jac_fn(xb))  # noqa: E731
+    return LeastSquaresProblem(
+        residual_fn=residual_fn,
+        x0=x0_batch,
+        m=int(output_length),
+        jac_fn=jac_fn,
+        materialize_jacobian=materialize_jacobian,
         res_jac_fn=res_jac_fn,
         res_jac_shares_primal=shares_primal,
     )
@@ -284,11 +375,12 @@ def matrix_free_problem(
         f=f, x=x, output_length=output_length, materialize_jacobian=False,
         device=device,
     )
-    if base.x0.ndim != 1:
+    if base.unravel is not None and (jvp is not None or colnorms is not None):
+        # Every hook is called in the flat solver vector space.
         raise ValueError(
             "user operator hooks (jvp/vjp/colnorms) work in the flat "
-            "vector space and require flat vector parameters (got x of "
-            f"shape {tuple(base.x0.shape)})"
+            "vector space and require flat vector parameters (got "
+            "structured x)"
         )
     return dataclasses.replace(
         base, jvp_fn=jvp, vjp_fn=vjp, colnorms_fn=colnorms

@@ -9,7 +9,10 @@ when it is materialized).
 ``mvps`` is the reference's matvec accounting; ``istop`` is the inner LSMR
 stop reason (reference ConvergenceHistory, src/utils/lsmr.jl:9-14), which
 reaches the result as ``inner_istop``, and ``ISTOP_DIRECT`` (-1) for the
-direct solvers.
+direct solvers. On a batch, LSMR's ``mvps`` and ``istop`` are per-fit
+tensors, and the optional ``live`` mask (the fits whose outer loop still
+runs) lets the other fits enter the inner solve frozen; the direct
+solvers take every fit.
 """
 
 from __future__ import annotations
@@ -38,30 +41,33 @@ ISTOP_DIRECT = -1
 
 def solver_fns(tag: AbstractSolver):
     """Return ``(solve_gn(op, y), solve_damped(op, y, damp))`` for a tag;
-    each returns ``(dx, mvps, istop)``."""
+    each returns ``(dx, mvps, istop)`` and takes an optional ``live``
+    mask (see the module)."""
     if isinstance(tag, Cholesky):
         return (
-            lambda op, y: _cholesky.solve_gn(op.J, y) + (ISTOP_DIRECT,),
-            lambda op, y, d: _cholesky.solve_damped(op.J, y, d) + (ISTOP_DIRECT,),
+            lambda op, y, live=None: _cholesky.solve_gn(op.J, y) + (ISTOP_DIRECT,),
+            lambda op, y, d, live=None: _cholesky.solve_damped(op.J, y, d)
+            + (ISTOP_DIRECT,),
         )
     if isinstance(tag, QR):
         policy = tag.rank_policy
         return (
-            lambda op, y: _qr.solve_gn(op.J, y, rank_policy=policy) + (ISTOP_DIRECT,),
-            lambda op, y, d: _qr.solve_damped(op.J, y, d) + (ISTOP_DIRECT,),
+            lambda op, y, live=None: _qr.solve_gn(op.J, y, rank_policy=policy)
+            + (ISTOP_DIRECT,),
+            lambda op, y, d, live=None: _qr.solve_damped(op.J, y, d) + (ISTOP_DIRECT,),
         )
     if isinstance(tag, LSMR):
-        def gn(op, y):
+        def gn(op, y, live=None):
             dx, stats = _lsmr.solve_gn(
                 op, y, preconditioner=tag.preconditioner,
-                maxiter=tag.maxiter, conlim=tag.conlim,
+                maxiter=tag.maxiter, conlim=tag.conlim, live=live,
             )
             return dx, stats.mvps, stats.istop
 
-        def damped(op, y, d):
+        def damped(op, y, d, live=None):
             dx, stats = _lsmr.solve_damped(
                 op, y, d, preconditioner=tag.preconditioner,
-                maxiter=tag.maxiter, conlim=tag.conlim,
+                maxiter=tag.maxiter, conlim=tag.conlim, live=live,
             )
             return dx, stats.mvps, stats.istop
 
@@ -69,9 +75,9 @@ def solver_fns(tag: AbstractSolver):
     if isinstance(tag, BlockCholesky):
         s, meth = tag.block_size, tag.method
         return (
-            lambda op, y: _block_cholesky.solve_gn(op, y, s, meth)
+            lambda op, y, live=None: _block_cholesky.solve_gn(op, y, s, meth)
             + (ISTOP_DIRECT,),
-            lambda op, y, d: _block_cholesky.solve_damped(op, y, d, s, meth)
+            lambda op, y, d, live=None: _block_cholesky.solve_damped(op, y, d, s, meth)
             + (ISTOP_DIRECT,),
         )
     raise TypeError(f"unknown solver tag {tag!r}")

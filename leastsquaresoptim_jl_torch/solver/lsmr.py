@@ -21,6 +21,12 @@ via ``LSMR(preconditioner=...)`` (reference :143-145, README.md:47).
 For a row-sharded operator (``op.reduce`` set) the residual part of a
 range-space vector holds this process's rows, so its squared norm is
 completed across the processes; the damp part is replicated.
+
+A batch of fits (y of shape (B, m)) runs the batched recurrences of
+``ops/lsmr_core.py``: the preconditioner, the damping and every stop are
+per fit (the column norms of a batched operator are per fit), and the
+stats hold per-fit tensors. ``live`` (B,) lets fits whose outer loop is
+done enter frozen.
 """
 
 from __future__ import annotations
@@ -49,14 +55,6 @@ def _precond_diag(op, damp, preconditioner: Optional[Callable]):
     return preconditioner(op, damp)
 
 
-def _require_single_fit(y):
-    if y.ndim != 1:
-        raise NotImplementedError(
-            "batched LSMR solves are not ported yet: LSMR takes one fit "
-            f"(a right side of shape (m,)), got shape {tuple(y.shape)}"
-        )
-
-
 def solve_gn(
     op: JacobianOperator,
     y: torch.Tensor,
@@ -64,15 +62,15 @@ def solve_gn(
     preconditioner: Optional[Callable] = None,
     maxiter: Optional[int] = None,
     conlim: Optional[float] = None,
+    live: Optional[torch.Tensor] = None,
 ):
     """Gauss-Newton LSMR solve (reference: iterative_lsmr.jl:179-198).
 
     Returns (dx, LSMRStats) with stats.mvps = 2 * inner iterations; the
     optimizer loops surface stats.istop into the result as ``inner_istop``.
     """
-    _require_single_fit(y)
     p = _precond_diag(op, None, preconditioner)
-    x0 = torch.zeros((op.n,), dtype=y.dtype, device=y.device)
+    x0 = torch.zeros(tuple(y.shape[:-1]) + (op.n,), dtype=y.dtype, device=y.device)
     if maxiter is None:
         maxiter = max(op.m, op.n)
     xt, stats = lsmr(
@@ -84,6 +82,7 @@ def solve_gn(
         btol=config.LSMR_BTOL,
         conlim=config.LSMR_CONLIM if conlim is None else conlim,
         normsq=lambda u: row_sum(u * u, op.reduce),
+        live=live,
     )
     return p * xt, stats
 
@@ -96,12 +95,12 @@ def solve_damped(
     preconditioner: Optional[Callable] = None,
     maxiter: Optional[int] = None,
     conlim: Optional[float] = None,
+    live: Optional[torch.Tensor] = None,
 ):
     """Damped (inexact) LSMR solve for LM (reference: iterative_lsmr.jl:238-259).
 
     Returns (dx, LSMRStats), see solve_gn.
     """
-    _require_single_fit(y)
     p = _precond_diag(op, damp, preconditioner)
     sqrt_damp = torch.sqrt(damp)
 
@@ -115,9 +114,9 @@ def solve_damped(
 
     def normsq(u):
         uy, ux = u
-        return row_sum(uy * uy, op.reduce) + torch.sum(ux * ux)
+        return row_sum(uy * uy, op.reduce) + torch.sum(ux * ux, dim=-1)
 
-    x0 = torch.zeros((op.n,), dtype=y.dtype, device=y.device)
+    x0 = torch.zeros(tuple(y.shape[:-1]) + (op.n,), dtype=y.dtype, device=y.device)
     if maxiter is None:
         maxiter = op.m + op.n  # stacked system has m + n rows
     xt, stats = lsmr(
@@ -127,5 +126,6 @@ def solve_damped(
         btol=config.LSMR_DAMPED_BTOL,  # btol = 0.5: inexact LM
         conlim=config.LSMR_CONLIM if conlim is None else conlim,
         normsq=normsq,
+        live=live,
     )
     return p * xt, stats

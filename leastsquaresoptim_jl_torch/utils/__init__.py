@@ -1,5 +1,6 @@
-"""Utilities: post-fit statistics."""
+"""Utilities: checkpoint/resume and post-fit statistics."""
 
+from . import checkpoint
 from .stats import covariance, standard_errors
 
-__all__ = ["covariance", "standard_errors"]
+__all__ = ["checkpoint", "covariance", "standard_errors"]

@@ -241,7 +241,9 @@ def test_batched_dogleg_carries_tensors_only():
     """The batched carry freezes leaf by leaf: no operator or closure in it."""
     from leastsquaresoptim_jl_torch.optimizer import dogleg
 
-    p = lt.least_squares_problem(torch.func.vmap(rosenbrock), torch.zeros(3, 2, dtype=F64))
+    from leastsquaresoptim_jl_torch.problem import _batched_problem
+
+    p = _batched_problem(rosenbrock, torch.zeros(3, 2, dtype=F64))
     carry, cond_fn, body_fn, _ = dogleg.loop_pieces(p, lt.Cholesky(), lt.Options())
     new = body_fn(carry)
     assert set(new) == set(carry)
@@ -249,12 +251,16 @@ def test_batched_dogleg_carries_tensors_only():
 
 
 def test_batched_errors_that_stay():
+    """What a batch still refuses: a user Jacobian (the JAX package's
+    solve_batch takes no g=), the fused schedules on a matrix-free batch,
+    and live trace printing."""
+    from leastsquaresoptim_jl_torch.problem import _batched_problem
+
     x0 = torch.zeros(4, 2, dtype=F64)
-    with pytest.raises(NotImplementedError, match="geodesic"):
-        lt.solve_batch(lambda x: x - 1.0, x0,
-                       optimizer=lt.LevenbergMarquardt(lt.Cholesky(), geodesic=True))
-    with pytest.raises(NotImplementedError, match="batched matrix-free"):
-        lt.solve_batch(lambda x: x - 1.0, x0, optimizer=lt.Dogleg(lt.LSMR()),
-                       materialize_jacobian=False)
-    with pytest.raises(NotImplementedError, match="batched problems"):
-        lt.solve_batch(lambda x: x - 1.0, x0, autodiff="central")
+    with pytest.raises(NotImplementedError, match="no entry point of the JAX package"):
+        _batched_problem(lambda x: x - 1.0, x0, g=lambda x: torch.eye(2, dtype=F64))
+    with pytest.raises(ValueError, match="fused evaluation requires a dense"):
+        lt.solve_batch(lambda x: x - 1.0, x0, optimizer=lt.LevenbergMarquardt(lt.LSMR()),
+                       materialize_jacobian=False, fused=True)
+    with pytest.raises(ValueError, match="show_trace"):
+        lt.solve_batch(lambda x: x - 1.0, x0, options=lt.Options(show_trace=True))

@@ -15,8 +15,8 @@ package, in float64 on the CPU.
   within 1e-8 relative of the JAX package's. The subset holds the JAX
   test's allowed miss that runs in seconds here (LM MGH10 s0), the rescue
   Dogleg MGH10 s0 that must hit, and the p = 3 structures Lanczos3 and
-  Gauss1 under Dogleg; the full 28 x 2 runs on the card (chip_smoke.py
-  phase 11d).
+  Gauss1 under Dogleg; Dogleg's runs at the first certified start run on
+  the card (chip_smoke.py phase 11d).
 - Start-free Lanczos3 (tests/test_init.py:312): the integral-regression
   guess within 10% of the certified solution and the VarPro fit from it
   within 1e-3, with the JAX package's iterations.

@@ -146,8 +146,12 @@ def test_sparse_takes_no_fused_schedule_and_no_batch():
         lt.solve(pt, lt.LevenbergMarquardt(lt.LSMR()), fused=True)
     _, f, x0, _ = tm.broyden_tridiagonal(6, device="cpu")
     jac = lt.sparse_jacobian(f, _tridiag_pattern(6), 6, 6)
-    with pytest.raises(NotImplementedError, match="sparse Jacobians"):
-        lt.least_squares_problem(f, torch.stack([x0, x0]), g=jac)
+    # A user (sparse) Jacobian reaches no batch: the JAX package's
+    # solve_batch takes no g=, and the batch problem refuses one.
+    from leastsquaresoptim_jl_torch.problem import _batched_problem
+
+    with pytest.raises(NotImplementedError, match="g= for a batch"):
+        _batched_problem(f, torch.stack([x0, x0]), g=jac)
 
 
 def _bvp(n, blocks, xp):
