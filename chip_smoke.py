@@ -7,7 +7,8 @@ fitting (start-free multi-term fits, robust losses, single fits), the
 structured-Jacobian path (BlockCholesky, sparse Jacobians by colored AD)
 at configs #4 and #5's size, and the batched breadth (geodesic LM, LSMR
 and reverse/central differences over batches), structured parameters,
-checkpoints and the entry points.
+checkpoints and the entry points, and the low-precision axis (bfloat16
+and float16 solves, the float16 instance of the fused kernel).
 
     python3 chip_smoke.py
 
@@ -26,7 +27,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    alpha and c within 1e-12 relative and iterations, flags and done equal
    on every fit; float32 median relative alpha difference <= 1e-6 and
    iterations/flags/done equal on >= 99% of fits, and on every fit of
-   the last block alpha and c within 1e-6 and all equal.
+   the last block alpha and c within 1e-6 and all equal. Then float16
+   (the kernel's float16 instance) for every basis at the same m on O(1)
+   data (x in [0.25, 4], coefficients ~ U(1, 3): amplitudes of 100-400
+   overflow a float16 sum of squares) at float16's derived tolerances:
+   every column of every fit's state, and every result of both solves,
+   equal to the plain version's bit for bit.
 3. The plain route: the bench.py workload (B = 131072 exp_saturation fits
    on a shared 64-point grid, float32, numpy default_rng(0), starts
    0.7-1.4x the truth) through curve_fit_batch(separable=True,
@@ -262,9 +268,47 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    round trip of (b)'s (131072, 2) minimizer (exact); entry() on the card
    (output shapes, finite); dryrun_multichip(1) on one NCCL rank.
 
+14. Low precision (bfloat16, float16), both kernels' counters reset
+   before 14a (which must launch neither).
+   (a) tests/test_torch_lowprec.py's single fits on the card and on the
+   CPU: the curve y = 2 (1 - exp(-x)) (64 points on [0.25, 4], start
+   [1.5, 0.7]) by {LM, Dogleg} x {Cholesky, QR, LSMR} and Broyden's
+   tridiagonal system at n = 16 and 100 by LM(QR()), LM(LSMR()) and
+   Dogleg(LSMR()), each in bfloat16 and float16: converged on both,
+   iterations within 2, minimizers within 4 x_tol; a bfloat16 fit
+   polished in float64 within 1e-8 of the truth.
+   (b) The curve-fit batch at the main path's size on O(1) data (B =
+   131072, m = 64, x = linspace(0.25, 4, 64), b0 ~ U(1, 3), b1 ~ U(0.5,
+   1.5), starts 0.7-1.4x, default_rng(0); 50 iterations, radius 100,
+   the dtype's derived tolerances, stop at 99% done): the plain route
+   (separable, gridded, fused="ssr", LM(Cholesky())) in float32,
+   bfloat16 and float16, the kernel route in float32 and float16. Each
+   route's counters are set to 0 before its first run and read after
+   it; then best and median of 3 timed runs, fits/s, converged share,
+   median relative error against the truth. Limits: float32 and float16
+   >= 99% converged, bfloat16 >= BF16_JAX_SHARE (the JAX package's share
+   on the CPU on the first 4096 fits, tools/lowprec_jax_share.py) less
+   0.01; median error <= 1e-4 (float32), <= 32 eps (bfloat16, float16);
+   the kernel route launches, the plain route does not.
+   (c) One K = 8 launch at 14b's shapes in float16 against float32, both
+   at float16's tolerances: float16 bit for bit against its plain
+   version; ms (median of 20, CUDA events), bound (2-byte x, Y and state;
+   operations at the card's peak outside the tensor cores for the type,
+   float16 133.8 TFLOP/s, float32 67) and share of each, the float16
+   instance's bound also at the float32 rate its arithmetic issues, and
+   the float16 plain version's ms.
+   (d) Measurement only: float32 MGS QR (ops/linalg.mgs_solve_with_diag)
+   against Householder (qr_solve_with_diag) at the stacked damped
+   systems of fit batches (131072, 66, 2), (4096, 72, 8), (1024, 320,
+   64), (64, 640, 128) and one (8192, 256): ms (one call after one
+   warm-up, CUDA events) and the warm-up's error against a float64
+   lstsq.
+
 The second-to-last line is a JSON object describing each kernel (times
-from phase 5 for kernel_varpro, at the lanes the rule picks, and from
-phase 6 at (2^20, 256) float32 for the Gram; bounds from this run's shapes and, for kernel_varpro, the
+from phase 5 for kernel_varpro, at the lanes the rule picks, from phase
+14c for its float16 instance (kernel_varpro_f16, launches from 14b's
+float16 kernel route), and from phase 6 at (2^20, 256) float32 for the
+Gram; bounds from this run's shapes and, for kernel_varpro, the
 iterations its fits ran); the last is {"ok": true, "device": {...}}. The
 script needs one CUDA card and imports nothing of JAX.
 """
@@ -380,6 +424,7 @@ def main():
 
     # -- phase 2: kernel against its plain version ------------------------
     phase_varpro_parity(dev)
+    phase_varpro_parity_f16(dev)
 
     # -- phases 3 and 4: the main path ------------------------------------
     xdata, Y_np, x0_np, bt = bench_data(B_MAIN, seed=0)
@@ -482,6 +527,7 @@ def main():
     phase_curve_fitting(dev, smi)
     phase_structured(dev, smi)
     phase_batched_breadth(dev, smi)
+    f16_entry = phase_lowprec(dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "kernel_varpro",
@@ -495,6 +541,12 @@ def main():
         "bound_ms": bound_k,
         "bound_by": bound_by_k,
         "library_ms": None,
+    }, {
+        "name": "kernel_varpro_f16",
+        "route": "cuda",
+        "source": "leastsquaresoptim_jl_torch/csrc/kernel_varpro.cuh",
+        "replaces": "leastsquaresoptim_jl_tpu/ops/kernel_varpro.py:161",
+        **f16_entry,
     }, {
         "name": "gram",
         "route": "cuda",
@@ -614,6 +666,91 @@ def phase_varpro_parity(dev):
                     check_parity(f"{what} solve K={k_iters} to {frac:g} done ({n} "
                                  f"launches, converged {conv:.6f})",
                                  solve_parity(ok_, or_), dt, lanes)
+
+
+# O(1) data for float16 (phases 2 and 14): x in [0.25, 4], since phase 2's
+# amplitudes of 100-400 on [1, 80] overflow a float16 sum of squares. Per
+# basis the truth's alpha range; coefficients ~ U(1, 3), starts 0.7-1.4x.
+F16_ALPHA = {"exp_saturation": (0.5, 1.5), "power": (0.2, 0.8),
+             "michaelis_menten": (0.5, 4.0)}
+
+
+def lowprec_data(B, m=M, seed=0, basis="exp_saturation"):
+    """c phi(x, a) on x = linspace(0.25, 4, m), c ~ U(1, 3), a ~ the basis's
+    F16_ALPHA range: (x, Y, starts (B, 2), truth (B, 2)). 14b's data is
+    the exp_saturation default (bench_data's recipe at O(1) scale)."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.25, 4.0, m)
+    bt = np.stack([rng.uniform(1, 3, B), rng.uniform(*F16_ALPHA[basis], B)], axis=1)
+    a = bt[:, 1:2]
+    if basis == "exp_saturation":
+        phi = 1.0 - np.exp(-a * x)
+    elif basis == "power":
+        phi = x ** a
+    else:
+        phi = x / (a + x)
+    return x, bt[:, :1] * phi, bt * rng.uniform(0.7, 1.4, size=(B, 2)), bt
+
+
+def f16_tols():
+    """The derived float16 tolerances (8, 8 and 80 eps) as a tuple."""
+    from leastsquaresoptim_jl_torch import config
+
+    return config.default_tolerances(torch.float16)
+
+
+# float16: the kernel against its plain version, bit for bit: every column
+# of every fit's state equal (every + - * / and sqrt is the correctly
+# rounded half operation in both, exp and log are float32's expf and logf
+# rounded to half in both).
+def check_parity_f16(what, sk, sr):
+    """Hold a float16 kernel state (or result dict) to the plain
+    version's, every fit and column bit for bit (NaN equal to NaN)."""
+    if isinstance(sk, dict):
+        keys = ("alpha", "coefficient", "iterations", "converged", "f_converged",
+                "x_converged", "g_converged", "done")
+        cols = [(sk[k], sr[k]) for k in keys]
+    else:
+        cols = [(sk[:, j], sr[:, j]) for j in range(sk.shape[1])]
+    unequal = torch.zeros_like(cols[0][0], dtype=torch.bool)
+    for a, b in cols:
+        same = a == b
+        if a.is_floating_point():
+            same |= torch.isnan(a) & torch.isnan(b)
+        unequal |= ~same
+    n = int(unequal.sum().item())
+    print(f"  {what}: fits unequal {n} of {unequal.numel()}")
+    check(n == 0, f"{what}: every fit bit for bit")
+
+
+def phase_varpro_parity_f16(dev):
+    """Phase 2, float16: every basis at m = 64, 37, 1024 on O(1) data,
+    kernel against its plain version (one launch and two solves)."""
+    from leastsquaresoptim_jl_torch.interop import kernel_state
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    tols = f16_tols()
+    print(f"== phase 2 (float16): kernel_varpro vs plain version (B=4099, O(1) data, "
+          f"tolerances {tols})")
+    for basis in BASIS_ALPHA:
+        for m in (64, 37, 1024):
+            xd, Y_np, P0_np, _ = lowprec_data(4099, m, seed=1, basis=basis)
+            a0 = P0_np[:, 1]
+            x = torch.tensor(xd, dtype=torch.float16, device=dev)
+            Y = torch.tensor(Y_np, dtype=torch.float16, device=dev)
+            state0 = torch.tensor(kernel_state(a0, RADIUS, np.float16), device=dev)
+            what = f"{basis} m={m} float16 ({kv.lanes_per_fit(m)} lanes)"
+            check_parity_f16(f"{what} one launch K={K}", *one_launch(basis, x, Y, state0, tols))
+            for k_iters, frac in ((K, FRAC), (1, 1.0)):
+                kw = dict(zip(("x_tol", "f_tol", "g_tol"), tols), iterations=ITERATIONS,
+                          min_converged_fraction=frac, k_iters=k_iters, radius=RADIUS)
+                kv.launches = 0
+                ok_ = kv.varpro_lm_p1_kernel_solve(basis, x, Y, state0[:, kv._ALPHA], **kw)
+                n = kv.launches
+                or_ = kv.varpro_lm_p1_reference_solve(basis, x, Y, state0[:, kv._ALPHA], **kw)
+                conv = ok_["converged"].double().mean().item()
+                check_parity_f16(f"{what} solve K={k_iters} to {frac:g} done ({n} launches, "
+                                 f"converged {conv:.6f})", ok_, or_)
 
 
 def launch_ms(launch, x, Y, state0, tols, n=20, lanes=None, basis="exp_saturation"):
@@ -757,9 +894,11 @@ def loop_ms(fn, n=20, warmup=3):
     return start.elapsed_time(end) / n
 
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W).
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W);
+# "fp16" is half precision outside the tensor cores, twice float32's rate
+# (NVIDIA's Hopper architecture whitepaper, H100 SXM5: 133.8 TFLOP/s).
 HBM_BYTES_PER_MS = 3.35e9
-PEAK_FLOPS_PER_MS = {"tf32": 495e9, "bf16": 989e9, "fp32": 67e9}
+PEAK_FLOPS_PER_MS = {"tf32": 495e9, "bf16": 989e9, "fp32": 67e9, "fp16": 133.8e9}
 # Operations of one p = 1 VarPro LM iteration per sample, counted from
 # ops/kernel_varpro.py::_iteration_reference: two evaluations of the
 # model and its projection (exp_saturation: a multiply, exp, subtract and
@@ -795,14 +934,15 @@ def gram_bound(m, n, dtype):
                     "bf16" if dtype == torch.bfloat16 else "tf32")
 
 
-def varpro_bound(B, m, fit_iterations, size, basis="exp_saturation"):
-    """kernel_varpro's bound for one float32 launch: Y and x read once,
-    the (B, 8) state read and written once; the operations of the
-    fit-iterations the launch ran, at the float32 rate outside the tensor
-    cores (67 TFLOP/s)."""
+def varpro_bound(B, m, fit_iterations, size, basis="exp_saturation", peak=None):
+    """kernel_varpro's bound for one launch of ``size``-byte elements: Y
+    and x read once, the (B, 8) state read and written once; the
+    operations of the fit-iterations the launch ran, at the card's peak
+    outside the tensor cores for the elements' type (float32 67, float16
+    133.8 TFLOP/s), or at ``peak``'s rate."""
     nbytes = (B * m + m + 2 * B * 8) * size
     ops = fit_iterations * m * VARPRO_OPS_PER_SAMPLE_ITERATION[basis]
-    return bound_of(nbytes, ops, "fp32")
+    return bound_of(nbytes, ops, peak or ("fp16" if size == 2 else "fp32"))
 
 
 def gram_times(J, y, smi, what):
@@ -2631,6 +2771,234 @@ def phase_batched_breadth(dev, smi):
     check(kv.launches == 0 and gram.launches == 0,
           "phase 13 launches neither hand-written kernel (none lies on it)")
     print(f"== phase 13 took {time.perf_counter() - t0:.2f} s")
+
+
+# -- phase 14: low precision ------------------------------------------------
+
+# The converged share of the JAX package's bfloat16 separable route on the
+# first 4096 fits of 14b's data, on the CPU (tools/lowprec_jax_share.py):
+# 14b's bfloat16 run must reach it, less one point.
+BF16_JAX_SHARE = 0.992188
+LOWPREC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16}
+# 14d: stacked damped systems of fit batches (B, m + n, n), and one system.
+MGS_SHAPES = [(131072, 66, 2), (4096, 72, 8), (1024, 320, 64), (64, 640, 128),
+              (1, 8192, 256)]
+
+
+def lowprec_curve(dtype, dev):
+    """tests/test_lowprec.py's curve: y = 2 (1 - exp(-x)), 64 points on
+    [0.25, 4], start [1.5, 0.7]; (f, x0) in ``dtype`` on ``dev``."""
+    x = torch.linspace(0.25, 4.0, 64, dtype=torch.float64).to(dtype=dtype, device=dev)
+    y = 2.0 * (1.0 - torch.exp(-x))
+    return (lambda b: y - b[0] * (1.0 - torch.exp(-b[1] * x)),
+            torch.tensor([1.5, 0.7], dtype=dtype, device=dev))
+
+
+def lowprec_broyden(n, dtype, dev):
+    """Broyden's tridiagonal system, padded in the data's dtype."""
+    def f(x):
+        z = torch.zeros((1,), dtype=dtype, device=dev)
+        return ((3.0 - 2.0 * x) * x - torch.cat([z, x[:-1]])
+                - 2.0 * torch.cat([x[1:], z]) + 1.0)
+    return f, -torch.ones(n, dtype=dtype, device=dev)
+
+
+def phase_lowprec_single(dev, smi):
+    """14a: tests/test_torch_lowprec.py's single fits on the card against
+    the CPU, and the bfloat16 -> float64 polish."""
+    import leastsquaresoptim_jl_torch as lt
+
+    cpu = torch.device("cpu")
+    grid = []
+    for dname in ("bfloat16", "float16"):
+        dt = LOWPREC_DTYPES[dname]
+        for oname, opt in (("LM", lt.LevenbergMarquardt), ("Dogleg", lt.Dogleg)):
+            for sname, solver in (("Cholesky", lt.Cholesky), ("QR", lt.QR), ("LSMR", lt.LSMR)):
+                grid.append((f"curve {dname} {oname}({sname}())", opt(solver()),
+                             lambda d, dt=dt: lowprec_curve(dt, d)))
+        for n in (16, 100):
+            for oname, opt, solver in (("LM", lt.LevenbergMarquardt, lt.QR),
+                                       ("LM", lt.LevenbergMarquardt, lt.LSMR),
+                                       ("Dogleg", lt.Dogleg, lt.LSMR)):
+                grid.append((f"broyden({n}) {dname} {oname}({solver.__name__}())",
+                             opt(solver()), lambda d, n=n, dt=dt: lowprec_broyden(n, dt, d)))
+    print(f"== phase 14a: {len(grid)} low-precision single fits on the card against the CPU")
+    t0 = time.perf_counter()
+    for label, opt, problem in grid:
+        rd = lt.optimize(*problem(dev), opt)
+        rc = lt.optimize(*problem(cpu), opt)
+        xd = np.asarray(rd.minimizer, np.float64)
+        diff = float(np.max(np.abs(xd - np.asarray(rc.minimizer, np.float64))))
+        print(f"  {label}: card {rd.iterations} its (converged {rd.converged}), CPU "
+              f"{rc.iterations} its (converged {rc.converged}), minimizers max diff "
+              f"{diff:.3e} (4 x_tol {4 * rd.x_tol:.3e})")
+        check(rd.converged and rc.converged and abs(rd.iterations - rc.iterations) <= 2
+              and diff <= 4 * rd.x_tol,
+              f"14a {label}: converged on both, iterations within 2, minimizers within 4 x_tol")
+    print(f"  14a single fits: {time.perf_counter() - t0:.2f} s [{smi}]")
+    r16 = lt.optimize(*lowprec_curve(torch.bfloat16, dev), lt.LevenbergMarquardt(lt.Cholesky()))
+    x64 = torch.linspace(0.25, 4.0, 64, dtype=torch.float64, device=dev)
+    y64 = 2.0 * (1.0 - torch.exp(-x64))
+    rp = lt.polish(lambda b: y64 - b[0] * (1.0 - torch.exp(-b[1] * x64)),
+                   torch.tensor(np.asarray(r16.minimizer, np.float64), device=dev))
+    err = float(np.max(np.abs(rp.minimizer - np.array([2.0, 1.0])) / np.array([2.0, 1.0])))
+    print(f"  bfloat16 fit {r16.minimizer.tolist()} ({r16.iterations} its), float64 polish "
+          f"{rp.minimizer.tolist()} ({rp.iterations} its), max rel error {err:.3e}")
+    check(r16.converged and rp.converged and err <= 1e-8,
+          "14a: bfloat16 -> float64 polish within 1e-8 of the truth")
+
+
+def phase_lowprec_batch(dev, smi):
+    """14b: the curve-fit batch at the main path's size on O(1) data, the
+    plain route in float32, bfloat16 and float16 and the kernel route in
+    float32 and float16. Each route's counters are set to 0 just before
+    its first run and read just after it; then three timed runs. Returns
+    the float16 kernel route's launches."""
+    from leastsquaresoptim_jl_torch import Cholesky, LevenbergMarquardt, Options, config
+    from leastsquaresoptim_jl_torch.models import curve_fit_batch
+    from leastsquaresoptim_jl_torch.ops import gram
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    xdata, Y_np, P0_np, bt = lowprec_data(B_MAIN)
+    truth = torch.tensor(bt, dtype=torch.float64, device=dev)
+    print(f"== phase 14b: curve-fit batch in low precision (B={B_MAIN}, m={M}, O(1) data; "
+          f"bfloat16 limit: the JAX package's share {BF16_JAX_SHARE} less 0.01)")
+    f16_launches = None
+    for dname, dt in LOWPREC_DTYPES.items():
+        Y = torch.tensor(Y_np, device=dev).to(dt)
+        P0 = torch.tensor(P0_np, device=dev).to(dt)
+        eps = float(torch.finfo(dt).eps)
+        err_limit = 1e-4 if dt == torch.float32 else 32 * eps
+        conv_limit = BF16_JAX_SHARE - 0.01 if dt == torch.bfloat16 else 0.99
+        tols = config.default_tolerances(dt)
+        routes = [("plain", lambda Y=Y, P0=P0: curve_fit_batch(
+            "exp_saturation", xdata, Y, P0, optimizer=LevenbergMarquardt(Cholesky()),
+            options=Options(iterations=ITERATIONS, radius=RADIUS),
+            min_converged_fraction=FRAC, separable=True, gridded=True, fused="ssr"))]
+        if dt != torch.bfloat16:
+            routes.append(("kernel", lambda Y=Y, P0=P0, tols=tols: kv.varpro_lm_p1_kernel_solve(
+                "exp_saturation", xdata, Y, P0[:, 1], x_tol=tols[0], f_tol=tols[1],
+                g_tol=tols[2], iterations=ITERATIONS, min_converged_fraction=FRAC,
+                k_iters=K, radius=RADIUS)))
+        for route, run in routes:
+            kv.launches = gram.launches = 0
+            out = run()
+            torch.cuda.synchronize()
+            launches, g_launches = kv.launches, gram.launches
+            ts = [sync_time(run)[0] for _ in range(3)]
+            if route == "plain":
+                est = out["minimizer"]
+            else:
+                est = torch.stack([out["coefficient"], out["alpha"]], dim=-1)
+            conv = out["converged"].double().mean().item()
+            err = rel(est, truth).median().item()
+            best, med = min(ts), float(np.median(ts))
+            print(f"  {route} route, {dname}: best {best:.6f} s, median {med:.6f} s of 3; "
+                  f"{B_MAIN / best:.1f} fits/s (best); converged {conv:.6f}; median rel "
+                  f"error vs truth {err:.3e}; launches kernel_varpro {launches}, gram "
+                  f"{g_launches} [{smi}]")
+            check(conv >= conv_limit and err <= err_limit,
+                  f"14b {route} {dname}: converged >= {conv_limit:.4f}, median rel error "
+                  f"<= {err_limit:.3e}")
+            if route == "plain":
+                check(launches == 0 and g_launches == 0,
+                      f"14b plain {dname} launches neither kernel")
+            else:
+                check(launches > 0, f"14b kernel {dname} launches kernel_varpro")
+                if dt == torch.float16:
+                    f16_launches = launches
+    return f16_launches
+
+
+def phase_lowprec_launch(dev, smi):
+    """14c: one K = 8 launch of the float16 kernel against the float32 one
+    on 14b's data, and against its plain version; returns the float16
+    entry of the kernels line (launches filled in by the caller)."""
+    from leastsquaresoptim_jl_torch.interop import kernel_state
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    xdata, Y_np, P0_np, _ = lowprec_data(B_MAIN)
+    tols = f16_tols()
+    print(f"== phase 14c: one K={K} launch, float16 against float32 (B={B_MAIN}, m={M}, "
+          f"{kv.lanes_per_fit(M)} lanes; both at float16's tolerances {tols})")
+    ms = {}
+    entry = None
+    for dt, np_dt in ((torch.float32, np.float32), (torch.float16, np.float16)):
+        x = torch.tensor(xdata, device=dev).to(dt)
+        Y = torch.tensor(Y_np, device=dev).to(dt)
+        state0 = torch.tensor(kernel_state(P0_np[:, 1], RADIUS, np_dt), device=dev)
+        sk, sr = one_launch("exp_saturation", x, Y, state0, tols)
+        if dt == torch.float16:
+            check_parity_f16("14c float16 launch against its plain version", sk, sr)
+        launch_ms(kv._launch_kernel, x, Y, state0, tols, 3)  # warm-up
+        ms[dt] = launch_ms(kv._launch_kernel, x, Y, state0, tols)
+        size = Y.element_size()
+        fit_iters = int((sk[:, kv._ITERS] - state0[:, kv._ITERS]).float().sum().item())
+        bound, bound_by = varpro_bound(B_MAIN, M, fit_iters, size)
+        print(f"  {dt}: {ms[dt]:.4f} ms (median of 20, CUDA events), {fit_iters} "
+              f"fit-iterations; bound {bound:.4f} ms ({bound_by}; {size}-byte x, Y and "
+              f"state, operations at the type's peak outside the tensor cores), share "
+              f"{bound / ms[dt]:.1%} [{smi}]")
+        if dt == torch.float16:
+            # The instance computes each half operation in float and rounds
+            # it, so the float32 rate is the one this implementation is
+            # held to; the bound above is the card's.
+            b32, by32 = varpro_bound(B_MAIN, M, fit_iters, size, peak="fp32")
+            print(f"  float16 at the float32 rate this implementation issues: bound "
+                  f"{b32:.4f} ms ({by32}), share {b32 / ms[dt]:.1%}")
+        if dt == torch.float16:
+            launch_ms(kv._launch_reference, x, Y, state0, tols, 3)
+            plain = launch_ms(kv._launch_reference, x, Y, state0, tols)
+            cols = [kv._ALPHA, kv._C]
+            entry = dict(max_abs_err=(sk[:, cols].float() - sr[:, cols].float()).abs().max().item(),
+                         ms=ms[dt], plain_ms=plain, bound_ms=bound, bound_by=bound_by,
+                         library_ms=None)
+            print(f"  float16 plain version {plain:.4f} ms; float16 / float32 kernel time "
+                  f"{ms[torch.float16] / ms[torch.float32]:.3f}")
+    return entry
+
+
+def phase_mgs_timing(dev, smi):
+    """14d, a measurement (no gate): float32 MGS QR (the JAX package's
+    routing by n) against Householder QR on the card, one timed call of
+    each after one warm-up."""
+    from leastsquaresoptim_jl_torch.ops import linalg
+
+    print("== phase 14d: float32 MGS against Householder QR (measurement only)")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for B, m, n in MGS_SHAPES:
+        A = torch.randn(B, m, n, generator=gen, device=dev)
+        b = torch.randn(B, m, generator=gen, device=dev)
+        ref = torch.linalg.lstsq(A.double(), b.double().unsqueeze(-1)).solution.squeeze(-1)
+        line = []
+        for label, fn in (("MGS", linalg.mgs_solve_with_diag),
+                          ("Householder", linalg.qr_solve_with_diag)):
+            x = fn(A, b)[0].double()  # the warm-up, whose answer is held to lstsq
+            ms = loop_ms(lambda: fn(A, b), n=1, warmup=0)
+            err = (torch.linalg.vector_norm(x - ref, dim=-1)
+                   / torch.linalg.vector_norm(ref, dim=-1))
+            line.append(f"{label} {ms:.3f} ms (one call), rel error median {err.median().item():.2e} "
+                        f"max {err.max().item():.2e}")
+        print(f"  ({B}, {m}, {n}): {'; '.join(line)} [{smi}]")
+        del A, b, ref
+
+
+def phase_lowprec(dev, smi):
+    """Phase 14: low precision on the card. Returns the float16 entry of
+    the kernels line."""
+    from leastsquaresoptim_jl_torch.ops import gram
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    t0 = time.perf_counter()
+    kv.launches = gram.launches = 0
+    phase_lowprec_single(dev, smi)
+    check(kv.launches == 0 and gram.launches == 0, "14a launches neither kernel")
+    launches = phase_lowprec_batch(dev, smi)
+    entry = phase_lowprec_launch(dev, smi)
+    phase_mgs_timing(dev, smi)
+    print(f"== phase 14 took {time.perf_counter() - t0:.2f} s")
+    return {"launches": launches, **entry}
 
 
 if __name__ == "__main__":

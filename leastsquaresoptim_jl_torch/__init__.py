@@ -38,7 +38,13 @@ from .problem import (
     least_squares_problem,
     matrix_free_problem,
 )
-from .result import IsFiniteError, LeastSquaresResult
+from .result import (
+    IsFiniteError,
+    LeastSquaresResult,
+    OptimizationState,
+    OptimizationTrace,
+    converged,
+)
 from .solver.base import LSMR, QR, BlockCholesky, Cholesky
 
 __all__ = [
@@ -47,6 +53,7 @@ __all__ = [
     "robustify", "optimize_multistart", "latin_hypercube_starts",
     "best_of_raw", "Dogleg", "LevenbergMarquardt", "Options",
     "LeastSquaresProblem", "least_squares_problem",
-    "matrix_free_problem", "LeastSquaresResult", "IsFiniteError", "LSMR",
+    "matrix_free_problem", "LeastSquaresResult", "IsFiniteError",
+    "OptimizationState", "OptimizationTrace", "converged", "LSMR",
     "QR", "Cholesky", "BlockCholesky", "sparse_jacobian",
 ]

@@ -44,6 +44,7 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "lso_kernel_varpro_f32": [_P, _P, _P, _I, _I, _I] + [ctypes.c_float] * 7 + [_I, _I, _I, _P],
     "lso_kernel_varpro_f64": [_P, _P, _P, _I, _I, _I] + [ctypes.c_double] * 7 + [_I, _I, _I, _P],
+    "lso_kernel_varpro_f16": [_P, _P, _P, _I, _I, _I] + [ctypes.c_float] * 7 + [_I, _I, _I, _P],
     "lso_gram_f32": [_P, _P, _L, _I, _L, _I, _P, _P, _P],
     "lso_gram_bf16": [_P, _P, _L, _I, _L, _I, _P, _P, _P],
     "lso_gram_config": [_I, _I, ctypes.POINTER(_I)],

@@ -6,6 +6,8 @@ so that trust-region dynamics, iteration counts and convergence behaviour
 match the JAX package fit for fit.
 """
 
+import functools
+
 import torch
 
 # Minimum / maximum trust region radius (reference: src/types.jl:107-108).
@@ -66,3 +68,17 @@ LSMR_ATOL = 1e-6
 LSMR_BTOL = 1e-6
 LSMR_CONLIM = 1e8
 LSMR_DAMPED_BTOL = 0.5
+
+
+@functools.lru_cache(maxsize=None)
+def in_dtype(value, dtype):
+    """``value`` as JAX combines a Python float with an array of ``dtype``
+    (a weak type): rounded through ``dtype``. In float16 1e16 becomes inf
+    and 1e-16 zero, so a clamp or a comparison against a constant goes on
+    as it does in the JAX package, where ``torch.clamp`` and
+    ``torch.full`` would refuse the out-of-range bound and torch's eager
+    arithmetic would keep the scalar in float32. float32 and float64 get
+    ``value`` back unchanged: torch already rounds it as JAX does there."""
+    if torch.finfo(dtype).bits >= 32:
+        return value
+    return float(torch.tensor(value, dtype=torch.float64).to(dtype))

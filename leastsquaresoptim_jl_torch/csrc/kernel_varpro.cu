@@ -1,40 +1,14 @@
-// The fused VarPro LM kernel's C entry points and its exp_saturation
-// instances. The kernel, its design and its contract are in
+// The fused VarPro LM kernel's float32 and float64 C entry points and its
+// exp_saturation instances. The kernel, its design and its contract are in
 // kernel_varpro.cuh; kernel_varpro_power.cu and
-// kernel_varpro_michaelis_menten.cu hold the other bases' instances.
+// kernel_varpro_michaelis_menten.cu hold the other bases' instances,
+// kernel_varpro_f16.cu the float16 ones and their entry point.
 
 #include "kernel_varpro.cuh"
 
 namespace lso_varpro {
 
 LSO_VARPRO_INSTANCES(, ExpSaturation)
-
-namespace {
-
-template <typename T>
-int launch(const void* x, const void* Y, void* state, int B, int m,
-           int k_iters, Consts<T> cs, int basis, int lanes, int block_fits,
-           void* stream) {
-  const T* xp = static_cast<const T*>(x);
-  const T* yp = static_cast<const T*>(Y);
-  T* sp = static_cast<T*>(state);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (basis) {
-    case ExpSaturation::kCode:
-      return launch_basis<T, ExpSaturation>(xp, yp, sp, B, m, k_iters, cs,
-                                            lanes, block_fits, s);
-    case Power::kCode:
-      return launch_basis<T, Power>(xp, yp, sp, B, m, k_iters, cs, lanes,
-                                    block_fits, s);
-    case MichaelisMenten::kCode:
-      return launch_basis<T, MichaelisMenten>(xp, yp, sp, B, m, k_iters, cs,
-                                              lanes, block_fits, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-}  // namespace
 }  // namespace lso_varpro
 
 // Plain C entry points (bound with ctypes). Each returns cudaGetLastError()

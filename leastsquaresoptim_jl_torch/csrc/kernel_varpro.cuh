@@ -61,6 +61,15 @@
 // each basis are compiled in their own source file (kernel_varpro*.cu),
 // so that the build runs them in parallel.
 //
+// float16 (Half below; the JAX kernel runs in Y's dtype, float16 too):
+// x, Y and the state are stored as __half, and every + - * / and sqrt is
+// computed in float and rounded once to half, as torch's eager half
+// arithmetic does (float's 24 bits are at least 2 x 11 + 2, so that is
+// the correctly rounded half operation); exp and log run in float
+// (expf, logf, as torch's half kernels) and then round. Its instances are
+// the 11 (G, S) pairs lanes_per_fit reaches (not the sweep's layouts),
+// all three bases in kernel_varpro_f16.cu, built beside the others.
+//
 // LSO_VARPRO_PROBE (a build-time define, 0 by default) builds a variant
 // for measurement: 1 masks every run, as if no run were whole.
 //
@@ -75,6 +84,7 @@
 #define LSO_VARPRO_PROBE 0
 #endif
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
@@ -84,6 +94,29 @@ namespace lso_varpro {
 enum { kAlpha = 0, kDelta, kDec, kC, kIters, kDone, kConv, kFlags, kNS };
 enum { kMaxM = 1024 };                  // samples per fit
 enum { kMaxThreads = 256 };             // per block
+
+// float16 with torch's eager arithmetic (see the header): each operation
+// in float, rounded once to half. Every conversion is explicit, so that no
+// float32 or float64 value can pass through a Half by accident.
+struct Half {
+  __half h;
+  Half() = default;
+  __host__ __device__ explicit Half(float v) : h(__float2half_rn(v)) {}
+  __host__ __device__ explicit Half(double v) : h(__double2half(v)) {}
+  __device__ explicit Half(int v) : h(__float2half_rn(static_cast<float>(v))) {}
+  __device__ explicit Half(bool v) : h(__float2half_rn(v ? 1.0f : 0.0f)) {}
+  __device__ float f() const { return __half2float(h); }
+};
+__device__ __forceinline__ Half operator+(Half a, Half b) { return Half(a.f() + b.f()); }
+__device__ __forceinline__ Half operator-(Half a, Half b) { return Half(a.f() - b.f()); }
+__device__ __forceinline__ Half operator*(Half a, Half b) { return Half(a.f() * b.f()); }
+__device__ __forceinline__ Half operator/(Half a, Half b) { return Half(a.f() / b.f()); }
+__device__ __forceinline__ Half operator-(Half a) { return Half(-a.f()); }
+__device__ __forceinline__ bool operator>(Half a, Half b) { return a.f() > b.f(); }
+__device__ __forceinline__ bool operator<(Half a, Half b) { return a.f() < b.f(); }
+__device__ __forceinline__ bool operator>=(Half a, Half b) { return a.f() >= b.f(); }
+__device__ __forceinline__ bool operator<=(Half a, Half b) { return a.f() <= b.f(); }
+__device__ __forceinline__ bool operator!=(Half a, Half b) { return a.f() != b.f(); }
 
 template <typename T> struct Num;
 template <> struct Num<float> {
@@ -95,6 +128,10 @@ template <> struct Num<float> {
   __device__ static float log_(float v) { return logf(v); }
   __device__ static float sqrt_(float v) { return sqrtf(v); }
   __device__ static float abs_(float v) { return fabsf(v); }
+  __device__ static bool finite(float v) { return isfinite(v); }
+  __device__ static float shfl_xor(float v, int o, int w) {
+    return __shfl_xor_sync(0xffffffffu, v, o, w);
+  }
   __device__ static void unpack(float4 v, float* o) {
     o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
   }
@@ -108,8 +145,38 @@ template <> struct Num<double> {
   __device__ static double log_(double v) { return log(v); }
   __device__ static double sqrt_(double v) { return sqrt(v); }
   __device__ static double abs_(double v) { return fabs(v); }
+  __device__ static bool finite(double v) { return isfinite(v); }
+  __device__ static double shfl_xor(double v, int o, int w) {
+    return __shfl_xor_sync(0xffffffffu, v, o, w);
+  }
   __device__ static void unpack(double2 v, double* o) { o[0] = v.x; o[1] = v.y; }
 };
+template <> struct Num<Half> {
+  using Vec = uint4;  // 16 bytes, 8 halves
+  static constexpr int kVec = 8;
+  __device__ static Half eps() { return Half(0.0009765625f); }     // 2^-10
+  __device__ static Half tiny() { return Half(6.103515625e-05f); }  // 2^-14
+  __device__ static Half exp_(Half v) { return Half(expf(v.f())); }
+  __device__ static Half log_(Half v) { return Half(logf(v.f())); }
+  __device__ static Half sqrt_(Half v) { return Half(sqrtf(v.f())); }
+  __device__ static Half abs_(Half v) { return Half(fabsf(v.f())); }
+  __device__ static bool finite(Half v) { return isfinite(v.f()); }
+  __device__ static Half shfl_xor(Half v, int o, int w) {
+    Half r;
+    r.h = __shfl_xor_sync(0xffffffffu, v.h, o, w);
+    return r;
+  }
+  __device__ static void unpack(uint4 v, Half* o) {
+    const Half* p = reinterpret_cast<const Half*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = p[i];
+  }
+};
+
+// The sweep's (G, S) layouts (launch_instance) exist for float32 and
+// float64 only.
+template <typename T> constexpr bool kSweepLayouts = true;
+template <> constexpr bool kSweepLayouts<Half> = false;
 
 // NaN-propagating max/min (jnp.maximum / torch.clamp semantics).
 template <typename T> __device__ __forceinline__ T nan_max(T a, T b) {
@@ -122,7 +189,7 @@ template <typename T> __device__ __forceinline__ T nan_min(T a, T b) {
 // Sum over the G lanes of a fit; every lane ends with the same bits.
 template <int G, typename T> __device__ __forceinline__ T group_sum(T v) {
 #pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o, G);
+  for (int o = G / 2; o > 0; o >>= 1) v = v + Num<T>::shfl_xor(v, o, G);
   return v;
 }
 
@@ -213,7 +280,7 @@ __device__ __forceinline__ void eval_run(const T (&u)[S], const bool (&valid)[S]
 // and float64 would spill there. With 255 registers, the float64 runs of
 // 32 and 64 samples and the float32 runs of 64 still spill (PERF.md).
 template <typename T, int S>
-constexpr int kMinBlocks = (sizeof(T) == 4 && S <= 16) ? 2 : 1;
+constexpr int kMinBlocks = (sizeof(T) <= 4 && S <= 16) ? 2 : 1;
 
 template <typename T, int G, int S, typename Basis>
 __global__ void __launch_bounds__(kMaxThreads, (kMinBlocks<T, S>))
@@ -334,7 +401,7 @@ varpro_lm_p1_kernel(Args<T> a) {
 
     if (!(done > T(0))) {
       const bool accepted = rho > a.cs.min_step_quality;
-      const bool step_finite = isfinite(dx);
+      const bool step_finite = Num<T>::finite(dx);
       // Priority-gated: f beats x beats g, at most one flag set.
       const bool f_conv = accepted && (Num<T>::abs_(ared) <=
                                        a.cs.f_tol * (Num<T>::abs_(ssr) + a.cs.f_tol));
@@ -352,7 +419,7 @@ varpro_lm_p1_kernel(Args<T> a) {
       dec = accepted ? T(2) : dec * T(2);
       c = accepted ? c_t : cc;
       const bool new_done =
-          cv || !isfinite(new_alpha) || (iters + T(1) >= a.cs.max_iters);
+          cv || !Num<T>::finite(new_alpha) || (iters + T(1) >= a.cs.max_iters);
       alpha = new_alpha;
       iters = iters + T(1);
       done = new_done ? T(1) : T(0);
@@ -397,11 +464,13 @@ cudaError_t launch_instance(const Args<T>& a, int G, int S, dim3 grid,
   if (G == 16 && S == 16) return run<T, Basis, 16, 16>(a, grid, block, s);
   if (G == 32 && S == 16) return run<T, Basis, 32, 16>(a, grid, block, s);
   if (G == 32 && S == 32) return run<T, Basis, 32, 32>(a, grid, block, s);
-  if (G == 1 && S == 64) return run<T, Basis, 1, 64>(a, grid, block, s);
-  if (G == 2 && S == 32) return run<T, Basis, 2, 32>(a, grid, block, s);
-  if (G == 8 && S == 8) return run<T, Basis, 8, 8>(a, grid, block, s);
-  if (G == 16 && S == 4) return run<T, Basis, 16, 4>(a, grid, block, s);
-  if (G == 32 && S == 2) return run<T, Basis, 32, 2>(a, grid, block, s);
+  if constexpr (kSweepLayouts<T>) {
+    if (G == 1 && S == 64) return run<T, Basis, 1, 64>(a, grid, block, s);
+    if (G == 2 && S == 32) return run<T, Basis, 2, 32>(a, grid, block, s);
+    if (G == 8 && S == 8) return run<T, Basis, 8, 8>(a, grid, block, s);
+    if (G == 16 && S == 4) return run<T, Basis, 16, 4>(a, grid, block, s);
+    if (G == 32 && S == 2) return run<T, Basis, 32, 2>(a, grid, block, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -430,6 +499,12 @@ int launch_basis(const T* x, const T* Y, T* state, int B, int m, int k_iters,
   return static_cast<int>(launch_instance<T, Basis>(a, lanes, S, grid, block, stream));
 }
 
+// The launch of basis code ``basis`` (BASES in ops/kernel_varpro.py).
+template <typename T>
+int launch(const void* x, const void* Y, void* state, int B, int m,
+           int k_iters, Consts<T> cs, int basis, int lanes, int block_fits,
+           void* stream);
+
 // Each basis is instantiated in its own source file.
 #define LSO_VARPRO_INSTANCES(EXTERN, BASIS)                                         \
   EXTERN template int launch_basis<float, BASIS>(const float*, const float*,      \
@@ -441,8 +516,40 @@ int launch_basis(const T* x, const T* Y, T* state, int B, int m, int k_iters,
                                                   Consts<double>, int, int,       \
                                                   cudaStream_t);
 
+// The float16 instances of every basis, in kernel_varpro_f16.cu.
+#define LSO_VARPRO_INSTANCES_F16(EXTERN, BASIS)                                   \
+  EXTERN template int launch_basis<Half, BASIS>(const Half*, const Half*, Half*, \
+                                                int, int, int, Consts<Half>,     \
+                                                int, int, cudaStream_t);
+
 LSO_VARPRO_INSTANCES(extern, ExpSaturation)
 LSO_VARPRO_INSTANCES(extern, Power)
 LSO_VARPRO_INSTANCES(extern, MichaelisMenten)
+LSO_VARPRO_INSTANCES_F16(extern, ExpSaturation)
+LSO_VARPRO_INSTANCES_F16(extern, Power)
+LSO_VARPRO_INSTANCES_F16(extern, MichaelisMenten)
+
+template <typename T>
+int launch(const void* x, const void* Y, void* state, int B, int m,
+           int k_iters, Consts<T> cs, int basis, int lanes, int block_fits,
+           void* stream) {
+  const T* xp = static_cast<const T*>(x);
+  const T* yp = static_cast<const T*>(Y);
+  T* sp = static_cast<T*>(state);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (basis) {
+    case ExpSaturation::kCode:
+      return launch_basis<T, ExpSaturation>(xp, yp, sp, B, m, k_iters, cs,
+                                            lanes, block_fits, s);
+    case Power::kCode:
+      return launch_basis<T, Power>(xp, yp, sp, B, m, k_iters, cs, lanes,
+                                    block_fits, s);
+    case MichaelisMenten::kCode:
+      return launch_basis<T, MichaelisMenten>(xp, yp, sp, B, m, k_iters, cs,
+                                              lanes, block_fits, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 }  // namespace lso_varpro

@@ -13,6 +13,7 @@ import torch
 
 from . import config
 from .ops.kernel_varpro import _ALPHA, _DEC, _DELTA, _NS
+from .result import _np
 
 
 def to_torch(tree, device=None, dtype=None):
@@ -35,7 +36,7 @@ def to_torch(tree, device=None, dtype=None):
 def to_numpy(result):
     """A raw result dict (tensor leaves, possibly on the GPU) to numpy."""
     return {
-        k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+        k: (_np(v) if isinstance(v, torch.Tensor) else v)
         for k, v in result.items()
     }
 

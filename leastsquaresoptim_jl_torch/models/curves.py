@@ -34,6 +34,7 @@ from .._device import data_device
 from ..api import optimize
 from ..batch import solve_batch
 from ..optimizer.common import Options
+from ..result import _np
 
 # Common curve shapes, each a pure model(x, beta) -> y for one fit.
 CURVES = {
@@ -250,7 +251,7 @@ def _curve_fit_separable(
                       lower=lower_nl, upper=upper_nl, **kwargs)
     rec = assemble_minimizer(sep, weighted=weighted)
     alpha = torch.as_tensor(result.minimizer, device=y.device)
-    full = rec(alpha, data).detach().cpu().numpy()
+    full = _np(rec(alpha, data))
     return dataclasses.replace(result, minimizer=full)
 
 

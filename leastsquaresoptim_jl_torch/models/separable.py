@@ -322,6 +322,18 @@ def _qr_route(P, y, floor2):
     return ok, c, r
 
 
+def _dead_norm2(dtype):
+    """The squared basis norm at or below which a basis counts as
+    numerically dead: tiny / eps^2, the JAX package's threshold. In
+    float16 that is 64, above the squared norm of an O(1) basis at 64
+    samples, so every such fit would be declared dead and end NaN (as the
+    JAX package's float16 separable fits do): float16 takes float32's
+    threshold, below its smallest subnormal, so that only an exactly zero
+    basis is dead there. Every other dtype keeps the JAX threshold."""
+    info = torch.finfo(torch.float32 if dtype == torch.float16 else dtype)
+    return info.tiny / (info.eps * info.eps)
+
+
 def _coefficients_and_residual(P, y):
     """Optimal coefficients ``c = argmin_c ||P c - y||`` and the residual
     ``y - P c`` for an (m, p) basis.
@@ -330,7 +342,8 @@ def _coefficients_and_residual(P, y):
     MGS route at one column). A numerically dead basis (||phi||^2 below
     tiny/eps^2) returns c = 0, r = y with zero derivative; the computing
     arm runs on a sanitized unit column wherever dead, so no tangent can
-    overflow through the unselected ``torch.where`` arm.
+    overflow through the unselected ``torch.where`` arm (the threshold is
+    ``_dead_norm2``'s).
 
     p > 1, three selects per evaluation:
 
@@ -352,7 +365,7 @@ def _coefficients_and_residual(P, y):
     if p == 1:
         phi = P[..., 0]
         n2_raw = torch.sum(phi * phi, dim=-1)
-        alive = n2_raw.detach() > tiny / (eps * eps)
+        alive = n2_raw.detach() > _dead_norm2(P.dtype)
         # Unit column e0, built on the device (an indexed write of a Python
         # scalar would copy from the host on every evaluation).
         e0 = (torch.arange(P.shape[-2], device=P.device) == 0).to(P.dtype)
@@ -369,7 +382,7 @@ def _coefficients_and_residual(P, y):
         return c, r
     eye = torch.eye(P.shape[-2], p, dtype=P.dtype, device=P.device)
     scale2_raw = torch.mean(torch.sum(P * P, dim=-2), dim=-1)
-    alive = scale2_raw.detach() > tiny / (eps * eps)
+    alive = scale2_raw.detach() > _dead_norm2(P.dtype)
     P = torch.where(alive[..., None, None], P, eye)
     G = P.mT @ P
     b = (P.mT @ y[..., None])[..., 0]

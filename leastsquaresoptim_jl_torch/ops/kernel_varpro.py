@@ -19,6 +19,14 @@ The per-fit state is a (B, 8) tensor in the fit's dtype, columns alpha,
 radius, decrease factor, coefficient, iterations, done, converged, flags
 (f = 2, x = 4, g = 8), exactly the JAX layout.
 
+Dtypes: float32, float64 and float16, as the JAX kernel (which runs in
+Y's dtype). In float16 every elementwise operation of the plain version
+rounds to half, as torch's eager half arithmetic does, and the kernel
+rounds the same way (kernel_varpro.cuh); the constants it compares and
+clamps against are rounded through the dtype as JAX rounds a weak-typed
+Python float (``config.in_dtype``: the radius bounds become 0 and inf).
+bfloat16 is refused: the JAX kernel fails on it.
+
 Devices: a CPU tensor runs ``_iteration_reference``, the plain PyTorch
 version; a CUDA tensor launches the kernel or raises — there is no
 fallback. ``varpro_lm_p1_reference_solve`` runs the plain version on any
@@ -116,7 +124,18 @@ def _run(m, lanes):
     return s
 
 
-def _check_lanes(m, lanes):
+# float16 is compiled for the pairs lanes_per_fit reaches only.
+_INSTANCES_F16 = frozenset(
+    [(1, 1), (1, 2), (1, 4), (1, 8), (1, 16), (2, 16), (4, 16), (8, 16),
+     (16, 16), (32, 16), (32, 32)])
+
+
+def instances(dtype):
+    """The (G, S) pairs the kernel is compiled for in ``dtype``."""
+    return _INSTANCES_F16 if dtype == torch.float16 else _INSTANCES
+
+
+def _check_lanes(m, lanes, dtype=torch.float32):
     """The lanes a launch at m samples runs: ``lanes``, or the rule's. The
     plain version takes what the kernel takes."""
     if m > MAX_M:
@@ -124,8 +143,9 @@ def _check_lanes(m, lanes):
     g = lanes_per_fit(m) if lanes is None else lanes
     if g not in _LANES:
         raise ValueError(f"lanes must be one of {_LANES}, got {lanes}")
-    if (g, _run(m, g)) not in _INSTANCES:
-        raise ValueError(f"no kernel instance runs m={m} at {g} lanes per fit")
+    if (g, _run(m, g)) not in instances(dtype):
+        raise ValueError(
+            f"no kernel instance runs m={m} at {g} lanes per fit in {dtype}")
     return g
 
 
@@ -172,12 +192,16 @@ def _iteration_reference(basis, x, y, state, tols, max_iters, lanes=None):
     state (B, 8); returns the new state. The arithmetic and the summation
     order are those of the kernel at ``lanes`` lanes per fit (default
     ``lanes_per_fit(m)``)."""
-    x_tol, f_tol, g_tol = tols
     prep, phi_fn, _ = BASES[basis]
     lanes = lanes_per_fit(y.shape[-1]) if lanes is None else lanes
     u = prep(x)
     eps = torch.finfo(y.dtype).eps
     tiny = torch.finfo(y.dtype).tiny
+
+    def k(value):
+        return config.in_dtype(value, y.dtype)
+
+    x_tol, f_tol, g_tol = (k(t) for t in tols)
 
     alpha = state[:, _ALPHA]
     delta = state[:, _DELTA]
@@ -223,7 +247,7 @@ def _iteration_reference(basis, x, y, state, tols, max_iters, lanes=None):
     pred = torch.abs(2.0 * dx * b - dx * dx * g)
     rho = torch.where(pred > 0, ared / pred, torch.zeros_like(pred))
 
-    accepted = rho > config.MIN_STEP_QUALITY
+    accepted = rho > k(config.MIN_STEP_QUALITY)
     step_finite = torch.isfinite(dx)
     # Priority-gated (f beats x beats g), as optimizer/common.assess_convergence.
     f_conv = accepted & (torch.abs(ared) <= f_tol * (torch.abs(ssr) + f_tol))
@@ -233,10 +257,10 @@ def _iteration_reference(basis, x, y, state, tols, max_iters, lanes=None):
 
     t = 2.0 * rho - 1.0
     grow = torch.clamp(
-        delta / torch.clamp(1.0 - t * t * t, min=1.0 / 3.0),
-        max=config.MAX_TRUST_REGION_RADIUS,
+        delta / torch.clamp(1.0 - t * t * t, min=k(1.0 / 3.0)),
+        max=k(config.MAX_TRUST_REGION_RADIUS),
     )
-    shrink = torch.clamp(delta / dec, min=config.MIN_TRUST_REGION_RADIUS)
+    shrink = torch.clamp(delta / dec, min=k(config.MIN_TRUST_REGION_RADIUS))
 
     new_alpha = torch.where(accepted | ~step_finite, alpha_t, alpha)
     new_done = conv | ~torch.isfinite(new_alpha) | (iters + 1.0 >= max_iters)
@@ -274,7 +298,7 @@ def _launch_kernel(basis, x, Y, state, k_iters, tols, max_iters,
     from .._build import load
 
     B, m = Y.shape
-    lanes = _check_lanes(m, lanes)
+    lanes = _check_lanes(m, lanes, Y.dtype)
     block_fits = _check_block_fits(block_fits, lanes)
     for name, t in (("x", x), ("Y", Y), ("state", state)):
         if t.device != Y.device or t.dtype != Y.dtype or not t.is_contiguous():
@@ -283,14 +307,17 @@ def _launch_kernel(basis, x, Y, state, k_iters, tols, max_iters,
             )
     lib = load()
     fn = {torch.float32: lib.lso_kernel_varpro_f32,
-          torch.float64: lib.lso_kernel_varpro_f64}[Y.dtype]
-    x_tol, f_tol, g_tol = tols
+          torch.float64: lib.lso_kernel_varpro_f64,
+          torch.float16: lib.lso_kernel_varpro_f16}[Y.dtype]
+    # The constants as the plain version rounds them (config.in_dtype).
+    x_tol, f_tol, g_tol, *bounds = (config.in_dtype(v, Y.dtype) for v in (
+        *tols, config.MIN_STEP_QUALITY, config.MIN_TRUST_REGION_RADIUS,
+        config.MAX_TRUST_REGION_RADIUS))
     with torch.cuda.device(Y.device):
         stream = torch.cuda.current_stream(Y.device).cuda_stream
         err = fn(
             x.data_ptr(), Y.data_ptr(), state.data_ptr(), B, m, k_iters,
-            x_tol, f_tol, g_tol, max_iters, config.MIN_STEP_QUALITY,
-            config.MIN_TRUST_REGION_RADIUS, config.MAX_TRUST_REGION_RADIUS,
+            x_tol, f_tol, g_tol, max_iters, *bounds,
             BASES[basis][2], lanes, block_fits, stream,
         )
     if err != 0:
@@ -306,11 +333,17 @@ def _solve(launch, basis, x_grid, Y, alpha0, *, x_tol, f_tol, g_tol,
         raise ValueError(f"unknown basis {basis!r}; supported: {sorted(BASES)}")
     if Y.ndim != 2:
         raise ValueError(f"Y must be (B, m), got shape {tuple(Y.shape)}")
-    if Y.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"Y must be float32 or float64, got {Y.dtype}")
+    if Y.dtype == torch.bfloat16:
+        raise ValueError(
+            "the fused VarPro kernel does not run in torch.bfloat16: the JAX "
+            "kernel fails on it (its scan carry mixes bfloat16 and float32); "
+            "Y must be float32, float64 or float16")
+    if Y.dtype not in (torch.float32, torch.float64, torch.float16):
+        raise ValueError(
+            f"Y must be float32, float64 or float16, got {Y.dtype}")
     B, m = Y.shape
     dt = Y.dtype
-    lanes = _check_lanes(m, lanes)
+    lanes = _check_lanes(m, lanes, dt)
     block_fits = _check_block_fits(block_fits, lanes)
     Y = Y.contiguous()
     radius0 = config.DEFAULT_RADIUS_LM if radius is None else radius
@@ -368,7 +401,8 @@ def varpro_lm_p1_kernel_solve(
     """Solve B independent p = 1 separable curve fits with the fused LM
     kernel. ``basis`` names the model's basis (``BASES``); ``x_grid`` is
     the shared (m,) sample grid, ``Y`` the (B, m) observations (its dtype,
-    float32 or float64, is the solve's), ``alpha0`` the (B,) starts.
+    float32, float64 or float16, is the solve's), ``alpha0`` the (B,)
+    starts.
 
     Launches ``k_iters`` LM iterations at a time until
     ``min_converged_fraction`` of the batch is done (converged, non-finite

@@ -1,11 +1,17 @@
 """Small dense numeric kernels shared by optimizers and solvers.
 
-PyTorch counterpart of ``leastsquaresoptim_jl_tpu/ops/linalg.py``, the
-subset the batched curve-fit and single-fit dense paths use (reference:
-src/utils/utils.jl:139-177). The JAX package's three modified-Gram-Schmidt
-QR solves exist because XLA's batched Householder QR cannot compile at
-large batch and small n; here ``qr_solve_with_diag`` is batched
-``torch.linalg.qr``.
+PyTorch counterpart of ``leastsquaresoptim_jl_tpu/ops/linalg.py``
+(reference: src/utils/utils.jl:139-177). The JAX package's three
+modified-Gram-Schmidt QR solves (``unrolled_mgs_solve``,
+``blocked_mgs_solve``, ``panel_mgs_solve``) exist there because XLA's
+batched Householder QR cannot compile at large batch and small n. Here
+float32 and float64 take batched ``torch.linalg.qr``
+(``qr_solve_with_diag``), and the MGS family serves bfloat16 and float16,
+which every ``torch.linalg`` factorization refuses: it is plain tensor
+code and runs in any dtype. For the same reason a half-precision SPD
+solve runs only the unrolled Cholesky (n <= 8); beyond it the JAX
+package's ``jax.scipy`` Cholesky refuses half precision, and so does the
+port, with a ``ValueError`` (``half_precision_refusal``).
 Every function takes leading batch axes: a vector argument is ``(..., n)``
 and a matrix ``(..., m, n)``, so one call serves a single fit and a batch
 of independent fits alike.
@@ -174,10 +180,29 @@ def unrolled_chol_solve(gram, rhs):
     return unrolled_chol_solve_with_diag(gram, rhs)[0]
 
 
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def half_precision_refusal(dtype, route, reach):
+    """The ValueError of a route that the JAX package refuses in bfloat16
+    or float16 (its ``jax.scipy`` / ``jnp.linalg`` factorizations take no
+    half precision), and that the port refuses the same way."""
+    return ValueError(
+        f"{route} does not run in {dtype}: {reach}. The JAX package "
+        f"refuses this route in half precision as well."
+    )
+
+
 def dense_chol_solve_with_diag(gram, rhs):
     """Batched ``torch.linalg`` Cholesky solve for n > UNROLLED_SOLVE_MAX_N.
     A failed factorization yields NaN (as XLA's Cholesky does) instead of
-    raising, so the callers' finiteness tests see it."""
+    raising, so the callers' finiteness tests see it. bfloat16 and float16
+    are refused (``half_precision_refusal``)."""
+    if gram.dtype in HALF_DTYPES:
+        raise half_precision_refusal(
+            gram.dtype, f"the Cholesky solve at n = {gram.shape[-1]}",
+            f"half precision runs the unrolled Cholesky, n <= "
+            f"{UNROLLED_SOLVE_MAX_N}")
     L, info = torch.linalg.cholesky_ex(gram)
     L = torch.where((info == 0)[..., None, None], L, torch.nan)
     z = torch.linalg.solve_triangular(L, rhs.unsqueeze(-1), upper=False)
@@ -223,6 +248,195 @@ def qr_solve_with_diag(A, b):
     qtb = (q.mT @ b.unsqueeze(-1))
     x = torch.linalg.solve_triangular(r, qtb, upper=True).squeeze(-1)
     return x, torch.abs(torch.diagonal(r, dim1=-2, dim2=-1))
+
+
+def unrolled_mgs_solve(A, b):
+    """Least-squares solve min ||A x - b|| by modified Gram-Schmidt QR,
+    unrolled over the (small) column dimension; returns ``(x, |diag(R)|)``.
+
+    Every intermediate is a (..., m) slice, so a batch is elementwise work.
+    One reorthogonalization pass ("twice is enough") keeps the error at
+    ~eps cond(A); the right-hand side is projected with progressive
+    deflation. R_jj is the norm of column j after its orthogonalization:
+    an overflowed column norm gives R_jj = inf and q_j = 0 (the callers
+    test |diag(R)|)."""
+    n = A.shape[-1]
+    q = []
+    R = [[None] * n for _ in range(n)]
+    for j in range(n):
+        v = A[..., :, j]
+        for i in range(j):
+            R[i][j] = torch.sum(q[i] * v, dim=-1)
+            v = v - R[i][j].unsqueeze(-1) * q[i]
+        for i in range(j):
+            c = torch.sum(q[i] * v, dim=-1)
+            R[i][j] = R[i][j] + c
+            v = v - c.unsqueeze(-1) * q[i]
+        R[j][j] = torch.sqrt(torch.sum(v * v, dim=-1))
+        q.append(v / R[j][j].unsqueeze(-1))
+    bb = b
+    z = []
+    for j in range(n):
+        zj = torch.sum(q[j] * bb, dim=-1)
+        z.append(zj)
+        bb = bb - zj.unsqueeze(-1) * q[j]
+    x = [None] * n
+    for j in reversed(range(n)):
+        s = z[j]
+        for k in range(j + 1, n):
+            s = s - R[j][k] * x[k]
+        x[j] = s / R[j][j]
+    rdiag = torch.stack([R[j][j] for j in range(n)], dim=-1)
+    return torch.stack(x, dim=-1), torch.abs(rdiag)
+
+
+# Upper parameter count of the column-at-a-time MGS below (the JAX
+# package's fori_loop-blocked form), and of the panel-blocked one after it.
+BLOCKED_MGS_MAX_N = 64
+PANEL_MGS_MAX_N = 256
+_PANEL_WIDTH = 8
+
+
+def _project(Q, V):
+    """Q' V for Q (..., m, k) and V (..., m) or (..., m, p)."""
+    if V.dim() == Q.dim() - 1:
+        return torch.einsum("...mk,...m->...k", Q, V)
+    return torch.einsum("...mk,...mp->...kp", Q, V)
+
+
+def _expand(Q, C):
+    """Q C for Q (..., m, k) and C (..., k) or (..., k, p)."""
+    if C.dim() == Q.dim() - 1:
+        return torch.einsum("...mk,...k->...m", Q, C)
+    return torch.einsum("...mk,...kp->...mp", Q, C)
+
+
+def blocked_mgs_solve(A, b):
+    """Least-squares solve min ||A x - b|| by MGS QR with one loop step a
+    column (the JAX package's ``lax.fori_loop`` form, 8 < n <= 64);
+    returns ``(x, |diag(R)|)``.
+
+    The numerics of :func:`unrolled_mgs_solve`: two projection passes a
+    column, progressive deflation of the right-hand side. Each step
+    projects against the whole Q: its columns k >= j are still zero, so
+    the full contraction is the masked projection. Q, R, z and x are
+    preallocated and filled a column (or a row) at a time."""
+    n = A.shape[-1]
+    batch = A.shape[:-2]
+    Q = torch.zeros_like(A)
+    R = A.new_zeros(batch + (n, n))
+    for j in range(n):
+        v = A[..., :, j]
+        c1 = _project(Q, v)
+        v = v - _expand(Q, c1)
+        c2 = _project(Q, v)
+        v = v - _expand(Q, c2)
+        rjj = torch.sqrt(torch.sum(v * v, dim=-1))
+        rcol = c1 + c2
+        rcol[..., j] = rjj
+        Q[..., :, j] = v / rjj.unsqueeze(-1)
+        R[..., :, j] = rcol
+    z = A.new_zeros(batch + (n,))
+    bb = b
+    for j in range(n):
+        qj = Q[..., :, j]
+        zj = torch.sum(qj * bb, dim=-1)
+        bb = bb - zj.unsqueeze(-1) * qj
+        z[..., j] = zj
+    # Back substitution: x entries <= j are still zero at row j, so the
+    # full row dot needs no triangular mask.
+    x = A.new_zeros(batch + (n,))
+    for j in reversed(range(n)):
+        rrow = R[..., j, :]
+        s = z[..., j] - torch.sum(rrow * x, dim=-1)
+        x[..., j] = s / rrow[..., j]
+    return x, torch.abs(torch.diagonal(R, dim1=-2, dim2=-1))
+
+
+def panel_mgs_solve(A, b):
+    """Least-squares solve min ||A x - b|| by panel-blocked MGS QR (BCGS2:
+    block classical Gram-Schmidt twice, then the unrolled two-pass MGS
+    inside each panel of 8 columns; the JAX package's form for
+    64 < n <= 256); returns ``(x, |diag(R)|)``.
+
+    n / 8 sequential panel steps, each two (..., m, n) x (..., n, 8)
+    products; a ragged last panel takes the remaining columns. The
+    right-hand side is deflated a panel at a time, and the back
+    substitution is blocked, last panel first, with the in-panel
+    triangle unrolled."""
+    n = A.shape[-1]
+    p = _PANEL_WIDTH
+    nfull = (n // p) * p
+    batch = A.shape[:-2]
+    Q = torch.zeros_like(A)
+    R = A.new_zeros(batch + (n, n))
+    z = A.new_zeros(batch + (n,))
+    bb = b
+    starts = [(j0, p) for j0 in range(0, nfull, p)]
+    if n > nfull:
+        starts.append((nfull, n - nfull))
+    for j0, width in starts:
+        V = A[..., :, j0:j0 + width]
+        C1 = _project(Q, V)
+        V = V - _expand(Q, C1)
+        C2 = _project(Q, V)
+        V = V - _expand(Q, C2)
+        Rblk = C1 + C2  # R rows 0..j0 of this panel's columns
+        q = []
+        for j in range(width):
+            v = V[..., :, j]
+            for i in range(j):
+                rij = torch.sum(q[i] * v, dim=-1)
+                v = v - rij.unsqueeze(-1) * q[i]
+                Rblk[..., j0 + i, j] = rij
+            for i in range(j):
+                c = torch.sum(q[i] * v, dim=-1)
+                Rblk[..., j0 + i, j] += c
+                v = v - c.unsqueeze(-1) * q[i]
+            rjj = torch.sqrt(torch.sum(v * v, dim=-1))
+            Rblk[..., j0 + j, j] = rjj
+            q.append(v / rjj.unsqueeze(-1))
+        Qp = torch.stack(q, dim=-1)
+        Q[..., :, j0:j0 + width] = Qp
+        R[..., :, j0:j0 + width] = Rblk
+        # The panel's columns are orthogonal: one block op deflates all
+        # of its components of the right-hand side.
+        zp = _project(Qp, bb)
+        bb = bb - _expand(Qp, zp)
+        z[..., j0:j0 + width] = zp
+    # Blocked back substitution, last panel first: the x entries of
+    # panels not yet solved are zero, so the full row-block dot subtracts
+    # exactly the solved trailing part.
+    x = A.new_zeros(batch + (n,))
+    for j0, width in reversed(starts):
+        rows = R[..., j0:j0 + width, :]
+        s = z[..., j0:j0 + width] - torch.einsum("...pn,...n->...p", rows, x)
+        xs = [None] * width
+        for i in reversed(range(width)):
+            acc = s[..., i]
+            for k in range(i + 1, width):
+                acc = acc - rows[..., i, j0 + k] * xs[k]
+            xs[i] = acc / rows[..., i, j0 + i]
+        x[..., j0:j0 + width] = torch.stack(xs, dim=-1)
+    return x, torch.abs(torch.diagonal(R, dim1=-2, dim2=-1))
+
+
+def mgs_solve_with_diag(A, b):
+    """The JAX package's MGS routing by n: unrolled (n <= 8), column-blocked
+    (n <= 64) or panel-blocked (n <= 256); returns ``(x, |diag(R)|)``.
+    Larger n takes Householder QR there, which refuses half precision,
+    so this refuses it (``half_precision_refusal``)."""
+    n = A.shape[-1]
+    if n <= UNROLLED_SOLVE_MAX_N:
+        return unrolled_mgs_solve(A, b)
+    if n <= BLOCKED_MGS_MAX_N:
+        return blocked_mgs_solve(A, b)
+    if n <= PANEL_MGS_MAX_N:
+        return panel_mgs_solve(A, b)
+    raise half_precision_refusal(
+        A.dtype, f"the QR solve at n = {n}",
+        f"half precision runs the modified-Gram-Schmidt QR, n <= "
+        f"{PANEL_MGS_MAX_N}")
 
 
 def maxabs_projected_gradient(g, x, lower, upper):

@@ -39,6 +39,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from .. import config
+
 
 def _leaves(x):
     return x if isinstance(x, tuple) else (x,)
@@ -110,7 +112,8 @@ def lsmr(
         normsq = _t_normsq
 
     def scalar(v):
-        return torch.full((), v, dtype=dt, device=dev)
+        # Rounded as JAX rounds it: conlim = 1e8 is inf in float16.
+        return torch.full((), config.in_dtype(v, dt), dtype=dt, device=dev)
 
     lam, atol, btol = scalar(lam), scalar(atol), scalar(btol)
     one, zero = scalar(1.0), scalar(0.0)

@@ -112,6 +112,10 @@ def loop_pieces(
     )
     eps = torch.finfo(dt).eps
 
+    def k(value):
+        # A constant against a carry tensor, rounded as JAX rounds it.
+        return config.in_dtype(value, dt)
+
     def full(value, dtype):
         return torch.full(batch_shape, value, dtype=dtype, device=x.device)
 
@@ -189,7 +193,7 @@ def loop_pieces(
                 # One probe set serves the block and the Gauss-Newton
                 # solve's Jacobi preconditioner.
                 op = dataclasses.replace(op, colnorms2=lambda: raw_dtd)
-        dtd = torch.clamp(raw_dtd, config.MIN_DIAGONAL, config.MAX_DIAGONAL)
+        dtd = torch.clamp(raw_dtd, k(config.MIN_DIAGONAL), k(config.MAX_DIAGONAL))
         g = b if fused_gram else op.rmatvec(fcur)
         dgr = g / dtd  # steepest descent in the D-metric (reference :105)
         wnorm_dgr = wnorm(dgr, dtd)
@@ -275,7 +279,7 @@ def loop_pieces(
                 # the radius, so the combined step stays within delta.
                 remaining = torch.clamp(delta - wnorm(dx_a, dtd), min=0.0)
                 scale = torch.clamp(
-                    remaining / torch.clamp(wnorm(free, dtd), min=1e-30),
+                    remaining / torch.clamp(wnorm(free, dtd), min=k(1e-30)),
                     max=1.0,
                 )
                 return clip_step_to_bounds(
@@ -320,7 +324,7 @@ def loop_pieces(
             torch.zeros_like(predicted_reduction),
         )
 
-        accepted = rho >= config.MIN_STEP_QUALITY
+        accepted = rho >= k(config.MIN_STEP_QUALITY)
         flags = assess_convergence(
             dx, x_trial, maxabs_gr, ssr, ared, x_tol, f_tol, g_tol, accepted,
         )
@@ -328,7 +332,7 @@ def loop_pieces(
         # Trust-region update on accept and reject alike (reference :193-197).
         delta = torch.where(
             rho < config.DECREASE_THRESHOLD,
-            torch.clamp(delta * 0.5, min=config.MIN_TRUST_REGION_RADIUS),
+            torch.clamp(delta * 0.5, min=k(config.MIN_TRUST_REGION_RADIUS)),
             torch.where(
                 rho > config.INCREASE_THRESHOLD,
                 torch.maximum(delta, 3.0 * wnorm_dx),

@@ -130,6 +130,10 @@ def loop_pieces(
     x_tol, f_tol, g_tol = resolve_tolerances(opts, dt)
     radius0 = opts.radius if opts.radius is not None else config.DEFAULT_RADIUS_LM
 
+    def k(value):
+        # A constant against a carry tensor, rounded as JAX rounds it.
+        return config.in_dtype(value, dt)
+
     def full(value, dtype):
         return torch.full(batch_shape, value, dtype=dtype, device=x.device)
 
@@ -243,8 +247,8 @@ def loop_pieces(
             dtd = dtd_raw
         dtd_mean = torch.mean(dtd, dim=-1, keepdim=True)
         dtd = torch.minimum(
-            torch.maximum(dtd, config.MIN_DIAGONAL * dtd_mean),
-            config.MAX_DIAGONAL * dtd_mean,
+            torch.maximum(dtd, k(config.MIN_DIAGONAL) * dtd_mean),
+            k(config.MAX_DIAGONAL) * dtd_mean,
         )
         damp = dtd / delta.unsqueeze(-1)
 
@@ -276,7 +280,7 @@ def loop_pieces(
                 acc_iters = 2  # one J' apply + one solve
             else:
                 acc, acc_iters, _ = solve_damped(op, fvv, damp, live)
-            use_acc = sumabs2(acc) <= config.GEODESIC_ALPHA**2 * sumabs2(dx)
+            use_acc = sumabs2(acc) <= k(config.GEODESIC_ALPHA**2) * sumabs2(dx)
             dx = torch.where(use_acc.unsqueeze(-1), dx + 0.5 * acc, dx)
             mul_calls = mul_calls + acc_iters
 
@@ -336,7 +340,7 @@ def loop_pieces(
             torch.zeros_like(predicted_reduction),
         )
 
-        accepted = rho > config.MIN_STEP_QUALITY
+        accepted = rho > k(config.MIN_STEP_QUALITY)
         flags = assess_convergence(
             dx, x_trial, maxabs_gr, ssr, ared, x_tol, f_tol, g_tol, accepted,
         )
@@ -345,11 +349,11 @@ def loop_pieces(
         # Reject: shrink with a doubling decrease factor (reference :133-138).
         t = 2.0 * rho - 1.0
         grow = torch.clamp(
-            delta / torch.clamp(1.0 - t * t * t, min=1.0 / 3.0),
-            max=config.MAX_TRUST_REGION_RADIUS,
+            delta / torch.clamp(1.0 - t * t * t, min=k(1.0 / 3.0)),
+            max=k(config.MAX_TRUST_REGION_RADIUS),
         )
         shrink = torch.clamp(
-            delta / c["decrease_factor"], min=config.MIN_TRUST_REGION_RADIUS
+            delta / c["decrease_factor"], min=k(config.MIN_TRUST_REGION_RADIUS)
         )
         # A non-finite step poisons x as in the reference
         # (levenberg_marquardt.jl:106,135), so the loop halts on it.

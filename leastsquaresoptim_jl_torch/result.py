@@ -3,7 +3,10 @@
 PyTorch counterpart of ``leastsquaresoptim_jl_tpu/result.py`` (reference:
 src/types.jl:220-269 and src/utils/utils.jl:86-131). The host-side result
 holds numpy arrays and Python scalars, read back from the raw result's
-tensors wherever they live.
+tensors wherever they live. A bfloat16 solve's arrays are float32 numpy
+arrays holding exactly the bfloat16 values (numpy has no bfloat16; the
+JAX package returns ml_dtypes' bfloat16 there), so that
+``np.asarray(r.minimizer, np.float64)`` feeds ``polish`` as it does there.
 """
 
 from __future__ import annotations
@@ -66,9 +69,14 @@ class OptimizationTrace:
 
 
 def _np(v):
-    """A tensor (on any device) or array-like as a numpy array."""
+    """A tensor (on any device) or array-like as a numpy array. numpy has
+    no bfloat16: a bfloat16 tensor comes back as a float32 array holding
+    exactly its values (the widening is exact). float16 stays float16."""
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        v = v.detach()
+        if v.dtype == torch.bfloat16:
+            v = v.float()
+        return v.cpu().numpy()
     return np.asarray(v)
 
 

@@ -10,7 +10,8 @@ ops/block_tridiag.py. Leading batch axes on ``y`` are independent fits
 (the batched matrix-free solve of ``solve_batch``).
 
 Both arities return ``(dx, mvps)`` with mvps = 6s + 1: 2 per probe pair
-and 1 for the right side J'y.
+and 1 for the right side J'y. bfloat16 and float16 are refused with a
+``ValueError``, as the JAX package's block factorizations refuse them.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..ops.block_tridiag import (
     solve_block_tridiag_spd,
     solve_block_tridiag_spd_soa,
 )
+from ..ops.linalg import HALF_DTYPES, half_precision_refusal
 from ..ops.sparse import is_sparse
 
 
@@ -40,6 +42,10 @@ def _gram_probes(op, P, batch_shape):
 
 
 def _solve(op, y, damp, block_size: int, method: str):
+    if y.dtype in HALF_DTYPES:
+        raise half_precision_refusal(
+            y.dtype, "BlockCholesky", "its block Cholesky factorizations "
+            "take no half precision")
     rhs = op.rmatvec(y)
     n, s = op.n, block_size
     nb = n // s if n % s == 0 else None

@@ -15,9 +15,19 @@ The reference relies on LAPACK's column-pivoted QR for rank-deficient J;
 minimum-norm step) is taken when the triangular solve is non-finite or the
 scale-invariant survival test |R_ii| / ||J e_i|| flags near-singularity.
 The JAX package selects it with ``lax.cond``; here both are computed and
-``torch.where`` selects, as ``solver/cholesky.py`` does. The JAX package's
-modified-Gram-Schmidt routes for n <= 256 are replaced by batched
-Householder QR (``ops/linalg.qr_solve_with_diag``).
+``torch.where`` selects, as ``solver/cholesky.py`` does.
+
+The factorization is routed by dtype. float32 and float64 take batched
+Householder QR (``ops/linalg.qr_solve_with_diag``) at every n, where the
+JAX package takes its modified-Gram-Schmidt family for n <= 256.
+bfloat16 and float16, which ``torch.linalg.qr`` refuses, take the JAX
+package's MGS routing by n (``ops/linalg.mgs_solve_with_diag``: unrolled,
+column-blocked, panel-blocked) and its reach: the damped solve up to
+n = 256; the Gauss-Newton solve up to n = 8, where its jittered fallback's
+Cholesky is unrolled (the JAX package traces that Cholesky, which refuses
+half precision beyond 8); no ``rank_policy="truncate"``, whose SVD
+refuses half precision in both packages. What they refuse raises a
+``ValueError`` naming the dtype.
 """
 
 from __future__ import annotations
@@ -25,7 +35,23 @@ from __future__ import annotations
 import torch
 
 from ..ops.gram import gram_and_rhs
-from ..ops.linalg import qr_solve_with_diag, scaled_tikhonov_jitter, spd_chol_solve
+from ..ops.linalg import (
+    HALF_DTYPES,
+    UNROLLED_SOLVE_MAX_N,
+    half_precision_refusal,
+    mgs_solve_with_diag,
+    qr_solve_with_diag,
+    scaled_tikhonov_jitter,
+    spd_chol_solve,
+)
+
+
+def _qr_solve_with_diag(A, b):
+    """Householder QR for float32 and float64, the MGS family for half
+    precision (see the module)."""
+    if A.dtype in HALF_DTYPES:
+        return mgs_solve_with_diag(A, b)
+    return qr_solve_with_diag(A, b)
 
 
 def _jittered_normal_solve(J, y):
@@ -59,6 +85,17 @@ def solve_gn(J, y, rank_policy="jitter"):
     dense_qr.jl:30-42); returns (dx, mvps = 1). Underdetermined systems
     (m < n) take the min-norm route dx = J'(JJ' + eps I)^{-1} y."""
     m, n = J.shape[-2:]
+    if J.dtype in HALF_DTYPES:
+        if rank_policy == "truncate":
+            raise half_precision_refusal(
+                J.dtype, "QR(rank_policy='truncate')",
+                "its SVD takes no half precision")
+        if min(m, n) > UNROLLED_SOLVE_MAX_N:
+            raise half_precision_refusal(
+                J.dtype, f"the QR Gauss-Newton solve (Dogleg(QR())) at "
+                f"m = {m}, n = {n}", f"its Cholesky (the jittered fallback, "
+                f"or the row Gram where m < n) is unrolled to "
+                f"{UNROLLED_SOLVE_MAX_N} in half precision")
     if m < n:
         if rank_policy == "truncate":
             return _svd_truncated_solve(J, y), 1
@@ -69,7 +106,7 @@ def solve_gn(J, y, rank_policy="jitter"):
         eye = torch.eye(m, dtype=J.dtype, device=J.device)
         w = spd_chol_solve(row_gram + jitter[..., None, None] * eye, y)
         return (J.mT @ w.unsqueeze(-1)).squeeze(-1), 1
-    dx, rdiag = qr_solve_with_diag(J, y)
+    dx, rdiag = _qr_solve_with_diag(J, y)
     # Scale-invariant conditioning test (see the JAX package): 100x slack
     # in f64 keeps NIST-class cond ~1e10 systems exact; lower precision
     # gets 10x.
@@ -92,8 +129,15 @@ def solve_gn(J, y, rank_policy="jitter"):
 
 def solve_damped(J, y, damp):
     """Damped solve via QR of the stacked system [J; diag(sqrt(damp))]
-    with rhs [y; 0] (reference: dense_qr.jl:56-88); returns (dx, 1)."""
+    with rhs [y; 0] (reference: dense_qr.jl:56-88); returns (dx, 1). On
+    the MGS route (half precision) an overflowed column norm gives
+    R_jj = inf and q_j = 0, a silently finite zero step: a non-finite
+    |diag(R)| makes the step NaN instead, as in the JAX package, so the
+    loop halts on it."""
     stacked = torch.cat([J, torch.diag_embed(torch.sqrt(damp))], dim=-2)
     rhs = torch.cat([y, torch.zeros_like(damp)], dim=-1)
-    dx, _ = qr_solve_with_diag(stacked, rhs)
+    dx, rdiag = _qr_solve_with_diag(stacked, rhs)
+    if J.dtype in HALF_DTYPES:
+        dx = torch.where(torch.isfinite(rdiag).all(dim=-1, keepdim=True),
+                         dx, torch.nan)
     return dx, 1

@@ -183,6 +183,66 @@ def test_batched_dogleg_on_cuda_equals_one_fit_at_a_time(cuda_device):
     assert (tk.launches, tg.launches) == launches
 
 
+# float16: O(1) data on x in [0.25, 4] (amplitudes of 100-400 overflow a
+# float16 sum of squares), the derived tolerances; per basis the truth's
+# alpha range.
+F16_ALPHA = {"exp_saturation": (0.5, 1.5), "power": (0.2, 0.8),
+             "michaelis_menten": (0.5, 4.0)}
+F16_TOLS = (8 * 2.0**-10, 8 * 2.0**-10, 80 * 2.0**-10)
+# The rule's G at m = 64, 37, 1024, then every float16 (G, S) pair at
+# m = G S.
+F16_M = sorted({64, 37, 1024} | {g * s for g, s in tk.instances(torch.float16)})
+
+
+def _problem_f16(B, m, basis, seed=1):
+    rng = np.random.default_rng(seed)
+    xd = np.linspace(0.25, 4.0, m)
+    phi = BASES[basis][0]
+    a = rng.uniform(*F16_ALPHA[basis], B)
+    Y = (rng.uniform(1, 3, B)[:, None] * phi(xd[None, :], a[:, None])).astype(np.float16)
+    return xd, Y, (a * rng.uniform(0.7, 1.4, B)).astype(np.float16)
+
+
+def _bitwise_equal(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("basis", sorted(BASES))
+@pytest.mark.parametrize("m", F16_M)
+def test_f16_launch_matches_plain_version_bit_for_bit(cuda_device, basis, m):
+    """One K = 8 float16 launch against the plain version, B = 4099: every
+    column of every fit's state equal (both round every operation to
+    half the same way; exp and log are expf and logf rounded)."""
+    xd, Y, a0 = _problem_f16(4099, m, basis)
+    x = torch.tensor(xd, dtype=torch.float16, device=cuda_device)
+    Yc = torch.tensor(Y, device=cuda_device)
+    s0 = torch.tensor(kernel_state(a0, 100.0, np.float16), device=cuda_device)
+    before = tk.launches
+    sk = tk._launch_kernel(basis, x, Yc, s0.clone(), 8, F16_TOLS, 50.0)
+    sr = tk._launch_reference(basis, x, Yc, s0.clone(), 8, F16_TOLS, 50.0)
+    torch.cuda.synchronize()
+    assert tk.launches == before + 1 and sk.dtype == torch.float16
+    assert _bitwise_equal(sk, sr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("basis", sorted(BASES))
+def test_f16_solve_matches_plain_version_bit_for_bit(cuda_device, basis):
+    """One iteration per launch to 100% done at m = 64, float16: every
+    result equal to the plain version's."""
+    xd, Y, a0 = _problem_f16(4099, 64, basis)
+    Yc = torch.tensor(Y, device=cuda_device)
+    a0c = torch.tensor(a0, device=cuda_device)
+    kw = dict(zip(("x_tol", "f_tol", "g_tol"), F16_TOLS), radius=100.0, k_iters=1,
+              min_converged_fraction=1.0)
+    ok_ = tk.varpro_lm_p1_kernel_solve(basis, xd, Yc, a0c, **kw)
+    or_ = tk.varpro_lm_p1_reference_solve(basis, xd, Yc, a0c, **kw)
+    assert ok_["done"].all() and ok_["converged"].double().mean().item() >= 0.99
+    for key in ok_:
+        assert _bitwise_equal(ok_[key], or_[key]), key
+
+
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_cannot_take(cuda_device):
     xd, Y, a0 = _problem(np.float32, 8, 1025)

@@ -303,3 +303,94 @@ def test_unknown_basis_raises():
     with pytest.raises(ValueError, match="unknown basis"):
         tk.varpro_lm_p1_kernel_solve("gaussian", xd, torch.tensor(Y),
                                      torch.tensor(p0[:, 1]), **TOLS)
+
+
+# --- float16 -------------------------------------------------------------
+# The JAX test's problem at O(1) scale (b0 ~ U(1, 3), rates ~ U(0.5, 1.5),
+# x = linspace(0.25, 4, m)): the test's amplitudes of 100-400 overflow a
+# float16 sum of squares. Derived tolerances (8 eps, 8 eps, 80 eps).
+F16_TOLS = dict(x_tol=8 * 2.0**-10, f_tol=8 * 2.0**-10, g_tol=80 * 2.0**-10)
+
+
+def _problem_o1(dtype, B=64, m=32, seed=0):
+    rng = np.random.default_rng(seed)
+    xd = np.linspace(0.25, 4.0, m)
+    bt = np.stack([rng.uniform(1, 3, B), rng.uniform(0.5, 1.5, B)], axis=1)
+    Y = (bt[:, :1] * (1.0 - np.exp(-bt[:, 1:2] * xd[None, :]))).astype(dtype)
+    p0 = (bt * rng.uniform(0.7, 1.4, bt.shape)).astype(dtype)
+    return xd, Y, p0, bt
+
+
+@pytest.mark.parametrize("basis", ["exp_saturation", "power", "michaelis_menten"])
+def test_f16_plain_version_matches_jax_kernel(basis):
+    """float16 through the plain version against the JAX kernel (interpret
+    mode, which runs in Y's dtype): converged masks equal on >= 95% of
+    fits and the median relative alpha difference <= 8 eps. The two round
+    at other places (XLA keeps float32 inside a fusion, torch rounds every
+    operation to half), so bit equality is not expected."""
+    if basis == "exp_saturation":
+        xd, Y, p0, _ = _problem_o1(np.float16)
+        a0, phi, dphi = p0[:, 1], PHI, DPHI
+    else:
+        xd = np.linspace(1.0, 8.0, 32)
+        rng = np.random.default_rng(1)
+        lo, hi = {"power": (0.2, 0.8), "michaelis_menten": (0.5, 4.0)}[basis]
+        a = rng.uniform(lo, hi, 64)
+        phi, dphi, _ = JAX_BASES[basis]
+        Y = (rng.uniform(1, 3, 64)[:, None]
+             * np.asarray(phi(xd[None, :], a[:, None]))).astype(np.float16)
+        a0 = (a * rng.uniform(0.7, 1.4, 64)).astype(np.float16)
+    kw = dict(F16_TOLS, iterations=50, min_converged_fraction=1.0, k_iters=4)
+    oj = jk.varpro_lm_p1_kernel_solve(phi, dphi, jnp.asarray(xd, jnp.float16),
+                                      jnp.asarray(Y), jnp.asarray(a0),
+                                      block_fits=64, interpret=True, **kw)
+    ot = _np(tk.varpro_lm_p1_kernel_solve(basis, xd, torch.tensor(Y),
+                                          torch.tensor(a0), **kw))
+    assert ot["alpha"].dtype == np.float16
+    assert (ot["converged"] == np.asarray(oj["converged"])).mean() >= 0.95
+    assert ot["converged"].mean() >= 0.95
+    aj = np.asarray(oj["alpha"], np.float64)
+    rel = np.abs(ot["alpha"].astype(np.float64) - aj) / np.abs(aj)
+    assert np.median(rel) <= 8 * 2.0**-10
+
+
+def test_f16_constants_round_as_jax():
+    """In float16 the radius bounds are 0 and inf (1e-16 and 1e16 rounded
+    as JAX rounds a weak-typed float): the plain version clamps with them
+    where torch.clamp would refuse 1e16, and a fit at the radius cap
+    keeps growing to inf as in the JAX kernel."""
+    xd, Y, p0, _ = _problem_o1(np.float16, B=8)
+    state = torch.tensor(kernel_state(p0[:, 1], 6e4, np.float16))
+    tols = tuple(F16_TOLS.values())
+    out = tk._iteration_reference("exp_saturation", torch.tensor(xd, dtype=torch.float16),
+                                  torch.tensor(Y), state, tols, 50.0)
+    assert out.dtype == torch.float16
+    acc = out[:, tk._DEC] == 2.0
+    assert acc.any() and torch.isinf(out[acc, tk._DELTA]).all()
+
+
+def test_bf16_refused_as_jax():
+    """The JAX kernel fails on bfloat16 (its scan carry); the port refuses
+    it with a ValueError naming the dtype."""
+    xd, Y, p0, _ = _problem_o1(np.float32, B=8)
+    with pytest.raises(Exception):
+        jk.varpro_lm_p1_kernel_solve(
+            PHI, DPHI, jnp.asarray(xd, jnp.bfloat16), jnp.asarray(Y, jnp.bfloat16),
+            jnp.asarray(p0[:, 1], jnp.bfloat16), block_fits=64, interpret=True,
+            **F16_TOLS)
+    with pytest.raises(ValueError, match="torch.bfloat16"):
+        tk.varpro_lm_p1_kernel_solve("exp_saturation", xd,
+                                     torch.tensor(Y).to(torch.bfloat16),
+                                     torch.tensor(p0[:, 1]).to(torch.bfloat16),
+                                     **F16_TOLS)
+
+
+def test_f16_instances_are_the_rules():
+    """float16 is compiled for the (G, S) pairs lanes_per_fit reaches, not
+    for the sweep's other layouts."""
+    for m in (16, 37, 64, 256, 1024):
+        assert tk._check_lanes(m, None, torch.float16) == tk.lanes_per_fit(m)
+    assert tk.instances(torch.float16) < tk.instances(torch.float32)
+    with pytest.raises(ValueError, match="no kernel instance runs m=64"):
+        tk._check_lanes(64, 1, torch.float16)
+    assert tk._check_lanes(64, 1, torch.float32) == 1
