@@ -7,15 +7,17 @@ fitting (start-free multi-term fits, robust losses, single fits), the
 structured-Jacobian path (BlockCholesky, sparse Jacobians by colored AD)
 at configs #4 and #5's size, and the batched breadth (geodesic LM, LSMR
 and reverse/central differences over batches), structured parameters,
-checkpoints and the entry points, and the low-precision axis (bfloat16
-and float16 solves, the float16 instance of the fused kernel).
+checkpoints and the entry points, the low-precision axis (bfloat16
+and float16 solves, the float16 instance of the fused kernel), and the
+rest of the public surface (synthesize_jacobian, the examples).
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. Card and build: the card's name and power limit (nvidia-smi), and the
-   time to build the CUDA kernels from leastsquaresoptim_jl_torch/csrc/.
+   time to build the CUDA kernels from leastsquaresoptim_jl_torch/csrc/,
+   with phases 5c and 6b's measurement builds (every nvcc at once).
 2. The fused VarPro LM kernel against its plain PyTorch version on the
    card, for every basis it compiles (exp_saturation, power,
    michaelis_menten) at m = 64, 37 and 1024 (lanes_per_fit(m) lanes per
@@ -266,7 +268,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    equal); save_pytree after 3 Dogleg iterations, resume_x0 and finish
    (tests/test_api.py:131-160's scenario); a torch.distributed.checkpoint
    round trip of (b)'s (131072, 2) minimizer (exact); entry() on the card
-   (output shapes, finite); dryrun_multichip(1) on one NCCL rank.
+   (output shapes, finite). (dryrun_multichip(1) runs in phase 15.)
 
 14. Low precision (bfloat16, float16), both kernels' counters reset
    before 14a (which must launch neither).
@@ -288,7 +290,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    median relative error against the truth. Limits: float32 and float16
    >= 99% converged, bfloat16 >= BF16_JAX_SHARE (the JAX package's share
    on the CPU on the first 4096 fits, tools/lowprec_jax_share.py) less
-   0.01; median error <= 1e-4 (float32), <= 32 eps (bfloat16, float16);
+   0.01; median error <= 1e-4 (float32), 1.6e-2 (bfloat16: 3x the JAX
+   package's 5.313e-03) and 3.9e-3 (float16: 4 eps);
    the kernel route launches, the plain route does not.
    (c) One K = 8 launch at 14b's shapes in float16 against float32, both
    at float16's tolerances: float16 bit for bit against its plain
@@ -303,6 +306,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    64), (64, 640, 128) and one (8192, 256): ms (one call after one
    warm-up, CUDA events) and the warm-up's error against a float64
    lstsq.
+15. The rest of the public surface, no kernel of its own (both kernels'
+   counters set to 0 at its start and read after 15c: both must read 0).
+   First the entry point dryrun_multichip(1) on one NCCL rank, while a
+   worker process makes the CPU runs of 15b and 15c (the parent only
+   waits on the dryrun's process); 15a-15c run on the card after the
+   worker has ended, so that its threads do not slow their timings.
+   (a) problem.synthesize_jacobian in forward, reverse and central mode
+   on config #3's residual (tanh(A x) - y, 8192 x 1024, phase 8b's
+   problem) at x0, float64 and float32: ms per call (best and median of
+   5 after a warm-up), and J on the card against J on the CPU, max
+   |difference| / max |J| within JACOBIAN_LIMITS (forward and reverse
+   1e-12 in float64 and 1e-5 in float32; central 2e-9 and 2e-3).
+   (b) examples/torch_curve_fitting.py's main() on the card and on the
+   CPU: the converged shares of its four 10000-fit batches within 1e-3
+   of each other, the single fits' minimizers finite and within 1e-3
+   relative.
+   (c) examples/torch_distributed_solve.py's main() at world size 1, on
+   the card over NCCL and on the CPU over gloo: converged on both, the
+   minimizers within 1e-5 relative.
 
 The second-to-last line is a JSON object describing each kernel (times
 from phase 5 for kernel_varpro, at the lanes the rule picks, from phase
@@ -407,8 +429,11 @@ def main():
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), device 0: {name}")
+    t0 = time.perf_counter()
+    n_compiles = build_everything()
     _build.load()
-    print(f"kernels built and loaded in {_build.build_seconds:.2f} s")
+    print(f"kernels and phases 5c and 6b's measurement builds built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s ({n_compiles} nvcc started at once)")
     ptxas = ptxas_report(_build.build_log)
     varpro = {k: v for k, v in ptxas.items() if "varpro" in k}
     for name_, (regs, st, ld) in ptxas.items():
@@ -528,6 +553,7 @@ def main():
     phase_structured(dev, smi)
     phase_batched_breadth(dev, smi)
     f16_entry = phase_lowprec(dev, smi)
+    phase_examples(dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "kernel_varpro",
@@ -851,6 +877,27 @@ def variant_launch(lib):
     return launch
 
 
+VARPRO_PROBE_FLAGS = ["-DLSO_VARPRO_PROBE=1"]
+
+
+def gram_probe_flags():
+    return {k: [f"-DLSO_GRAM_PROBE={v}"] for k, v in GRAM_PROBES.items()}
+
+
+def build_everything():
+    """Phase 1's build: the package's kernels and the measurement builds
+    of phases 5c and 6b, every nvcc started at once (those phases then load
+    their libraries from the cache). Returns the number of compiles."""
+    from leastsquaresoptim_jl_torch import _build
+
+    src = _build.SOURCE_DIR
+    jobs = [(sorted(src.glob("*.cu")), []),
+            (sorted(src.glob("kernel_varpro*.cu")), VARPRO_PROBE_FLAGS)]
+    jobs += [([src / "gram.cu"], flags) for flags in gram_probe_flags().values()]
+    _build._build(jobs)
+    return sum(len(sources) for sources, _ in jobs)
+
+
 def phase_mask_probe(x, Y, state0, tols, smi):
     """Phase 5c: the kernel without its unmasked path (LSO_VARPRO_PROBE=1)
     against the kernel, on phase 5b's launch."""
@@ -860,8 +907,8 @@ def phase_mask_probe(x, Y, state0, tols, smi):
     print("== phase 5c: kernel_varpro with every run masked (LSO_VARPRO_PROBE=1)")
     t0 = time.perf_counter()
     sources = sorted(p.name for p in _build.SOURCE_DIR.glob("kernel_varpro*.cu"))
-    lib = _build.load_variants(sources, {"masked": ["-DLSO_VARPRO_PROBE=1"]})["masked"]
-    print(f"  built in {time.perf_counter() - t0:.2f} s")
+    lib = _build.load_variants(sources, {"masked": VARPRO_PROBE_FLAGS})["masked"]
+    print(f"  loaded (built in phase 1 unless run alone) in {time.perf_counter() - t0:.2f} s")
     masked = variant_launch(lib)
     for lanes in (2, 4, 8):
         sk = kv._launch_kernel("exp_saturation", x, Y, state0.clone(), K, tols,
@@ -1059,10 +1106,10 @@ def phase_gram_probes(dev, smi):
 
     print("== phase 6b: Gram kernel measurement builds (LSO_GRAM_PROBE)")
     t0 = time.perf_counter()
-    libs = _build.load_variants(
-        ["gram.cu"], {k: [f"-DLSO_GRAM_PROBE={v}"] for k, v in GRAM_PROBES.items()})
+    libs = _build.load_variants(["gram.cu"], gram_probe_flags())
     libs = {"kernel": _build.load(), **libs}
-    print(f"  {len(GRAM_PROBES)} builds in {time.perf_counter() - t0:.2f} s")
+    print(f"  {len(GRAM_PROBES)} builds loaded (built in phase 1 unless run alone) in "
+          f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(6)
     for (m, n), dt in GRAM_SHAPES:
         if dt != torch.float32 or m < 8192:
@@ -2690,7 +2737,7 @@ def phase_structured_entry(dev, smi, minimizer):
     import tempfile
 
     import leastsquaresoptim_jl_torch as lt
-    from leastsquaresoptim_jl_torch.entry import dryrun_multichip, entry
+    from leastsquaresoptim_jl_torch.entry import entry
     from leastsquaresoptim_jl_torch.models import nist
     from leastsquaresoptim_jl_torch.utils import checkpoint
 
@@ -2749,9 +2796,6 @@ def phase_structured_entry(dev, smi, minimizer):
           f"{bool(torch.isfinite(out[0]).all())}, iterations max {int(out[2].max())}")
     check(shapes == [(32, 2), (32,), (32,)] and out[0].device.type == dev.type
           and bool(torch.isfinite(out[0]).all()), "13d: entry() runs on the card")
-    t0 = time.perf_counter()
-    dryrun_multichip(1, device=dev.type)
-    print(f"  dryrun_multichip(1) on one rank in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_batched_breadth(dev, smi):
@@ -2781,6 +2825,11 @@ def phase_batched_breadth(dev, smi):
 BF16_JAX_SHARE = 0.992188
 LOWPREC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                   "float16": torch.float16}
+# 14b's median relative error limits: 1e-4 in float32; 3x the JAX package's
+# bfloat16 error on the first 4096 fits (5.313e-03, tools/lowprec_jax_share.py)
+# and 4 eps in float16.
+LOWPREC_ERR_LIMITS = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2,
+                      torch.float16: 3.9e-3}
 # 14d: stacked damped systems of fit batches (B, m + n, n), and one system.
 MGS_SHAPES = [(131072, 66, 2), (4096, 72, 8), (1024, 320, 64), (64, 640, 128),
               (1, 8192, 256)]
@@ -2868,8 +2917,7 @@ def phase_lowprec_batch(dev, smi):
     for dname, dt in LOWPREC_DTYPES.items():
         Y = torch.tensor(Y_np, device=dev).to(dt)
         P0 = torch.tensor(P0_np, device=dev).to(dt)
-        eps = float(torch.finfo(dt).eps)
-        err_limit = 1e-4 if dt == torch.float32 else 32 * eps
+        err_limit = LOWPREC_ERR_LIMITS[dt]
         conv_limit = BF16_JAX_SHARE - 0.01 if dt == torch.bfloat16 else 0.99
         tols = config.default_tolerances(dt)
         routes = [("plain", lambda Y=Y, P0=P0: curve_fit_batch(
@@ -2999,6 +3047,149 @@ def phase_lowprec(dev, smi):
     phase_mgs_timing(dev, smi)
     print(f"== phase 14 took {time.perf_counter() - t0:.2f} s")
     return {"launches": launches, **entry}
+
+
+# -- phase 15: the rest of the public surface ---------------------------------
+
+# 15a: limits on max |J_card - J_cpu| / max |J_cpu|, per mode and dtype.
+# Forward and reverse mode are exact derivatives; card and CPU differ by the
+# rounding of A x (sqrt(n) eps |A| |x|) through tanh'. Central differences
+# divide that rounding by 2h = 2 cbrt(eps): their limits are about 9x the
+# card-against-CPU difference that this check read on an H100 (2.318e-10 in
+# float64, 2.297e-04 in float32; PERF.md section 5).
+JACOBIAN_LIMITS = {
+    ("forward", torch.float64): 1e-12, ("forward", torch.float32): 1e-5,
+    ("reverse", torch.float64): 1e-12, ("reverse", torch.float32): 1e-5,
+    ("central", torch.float64): 2e-9, ("central", torch.float32): 2e-3,
+}
+# 15b: the batched sections' converged shares (10000 fits each) on the card
+# and on the CPU may differ by at most 10 fits; the single fits' minimizers
+# (float32) by at most 1e-3 relative.
+EXAMPLE_SHARE_SLACK = 1e-3
+EXAMPLE_MINIMIZER_RTOL = 1e-3
+# 15c: the card's minimizer against the CPU's (float32, one process).
+DISTRIBUTED_RTOL = 1e-5
+
+
+def load_example(name):
+    """A file of examples/ as a module (the directory is no package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def examples_on_the_cpu():
+    """15b and 15c's CPU runs, in a worker process beside the dryrun and
+    the card's runs: the curve-fitting tour's main() and the distributed
+    solve at world size 1 over gloo, on 4 threads (the dryrun's processes
+    keep the other cores). Their printing is dropped."""
+    import contextlib
+    import io
+
+    torch.set_num_threads(4)
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        tour = load_example("torch_curve_fitting").main("cpu")
+        t1 = time.perf_counter()
+        raw = load_example("torch_distributed_solve").main("cpu")
+        t2 = time.perf_counter()
+    return tour, raw["minimizer"].numpy(), bool(raw["converged"]), (t1 - t0, t2 - t1)
+
+
+def phase_synthesize(dev, smi):
+    """15a: synthesize_jacobian in its three modes on config #3's residual
+    at x0 (8192 x 1024), float64 and float32: J on the card against J on
+    the CPU, and ms per call on the card (after the CPU worker has
+    ended)."""
+    from leastsquaresoptim_jl_torch.problem import synthesize_jacobian
+
+    cpu = torch.device("cpu")
+    print("== phase 15a: synthesize_jacobian on config #3's residual (8192, 1024) at x0")
+    for dt in (torch.float64, torch.float32):
+        p_dev, p_cpu = config3_problem(dev, dt)[0], config3_problem(cpu, dt)[0]
+        exact = synthesize_jacobian(p_cpu.residual_fn, "forward")(p_cpu.x0).double()
+        for mode in ("forward", "reverse", "central"):
+            jac = synthesize_jacobian(p_dev.residual_fn, mode)
+            J = jac(p_dev.x0)  # warm-up
+            ts = [sync_time(lambda: jac(p_dev.x0))[0] for _ in range(5)]
+            J_cpu = synthesize_jacobian(p_cpu.residual_fn, mode)(p_cpu.x0)
+            scale = J_cpu.abs().max().item()
+            err = (J.cpu() - J_cpu).abs().max().item() / scale
+            err_exact = (J.cpu().double() - exact).abs().max().item() / scale
+            limit = JACOBIAN_LIMITS[(mode, dt)]
+            print(f"  {mode} {dt}: {1e3 * min(ts):.3f} ms best, "
+                  f"{1e3 * float(np.median(ts)):.3f} ms median of 5; card vs CPU "
+                  f"{err:.3e} of max |J|, vs the exact J {err_exact:.3e} [{smi}]")
+            check(J.shape == (8192, 1024) and J.dtype == dt and J.device == dev
+                  and bool(torch.isfinite(J).all()), f"15a {mode} {dt}: finite (8192, 1024) on the card")
+            check(err <= limit, f"15a {mode} {dt}: card within {limit:g} of the CPU")
+
+
+def phase_examples(dev, smi):
+    """Phase 15: synthesize_jacobian (15a), the curve-fitting tour (15b)
+    and the distributed solve at world size 1 (15c) on the card, each
+    held against the CPU; neither hand-written kernel lies on them. First
+    the entry point dryrun_multichip(1): the parent only waits on its
+    process while the worker makes 15b-15c's CPU runs. 15a-15c run on the
+    card once the worker has ended."""
+    import multiprocessing
+
+    from leastsquaresoptim_jl_torch.entry import dryrun_multichip
+    from leastsquaresoptim_jl_torch.ops import gram
+    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    kv.launches = gram.launches = 0
+    with ctx.Pool(1) as pool:
+        cpu_job = pool.apply_async(examples_on_the_cpu)
+        print("== phase 15: dryrun_multichip(1), one NCCL rank, beside the CPU worker")
+        t1 = time.perf_counter()
+        dryrun_multichip(1, device=dev.type)
+        print(f"  dryrun_multichip(1) on one rank in {time.perf_counter() - t1:.2f} s")
+        t1 = time.perf_counter()
+        tour_cpu, x_cpu, conv_cpu, (t_tour_cpu, t_dist_cpu) = cpu_job.get(timeout=300)
+        print(f"  waited {time.perf_counter() - t1:.2f} s more for the CPU worker")
+    # The card's runs are timed once the worker has ended: their times are
+    # bound by host dispatch, which the worker's threads would slow.
+    phase_synthesize(dev, smi)
+    print("== phase 15b: examples/torch_curve_fitting.py main() on the card")
+    t1 = time.perf_counter()
+    tour = load_example("torch_curve_fitting").main(str(dev))
+    t_tour = time.perf_counter() - t1
+    print("== phase 15c: examples/torch_distributed_solve.py main() on the card, one process")
+    t1 = time.perf_counter()
+    raw = load_example("torch_distributed_solve").main(str(dev))
+    t_dist = time.perf_counter() - t1
+    launches = (kv.launches, gram.launches)
+    print(f"  launches on phase 15: kernel_varpro {launches[0]}, gram {launches[1]}")
+    check(launches == (0, 0), "phase 15 launches neither hand-written kernel (none lies on it)")
+
+    print(f"  15b: the tour took {t_tour:.2f} s on the card, {t_tour_cpu:.2f} s on the CPU "
+          f"(in a worker on 4 threads beside the dryrun) [{smi}]")
+    for key, want in tour_cpu.items():
+        got = tour[key]
+        if isinstance(want, float):
+            print(f"  15b {key}: converged {got:.6f} on the card, {want:.6f} on the CPU")
+            check(abs(got - want) <= EXAMPLE_SHARE_SLACK,
+                  f"15b {key}: converged shares within {EXAMPLE_SHARE_SLACK:g}")
+        else:
+            d = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+            print(f"  15b {key}: minimizer {got.tolist()}, max rel diff from the CPU {d:.3e}")
+            check(bool(np.all(np.isfinite(got))) and d <= EXAMPLE_MINIMIZER_RTOL,
+                  f"15b {key}: finite and within {EXAMPLE_MINIMIZER_RTOL:g} of the CPU")
+
+    x = raw["minimizer"].cpu().numpy()
+    d = float(np.max(np.abs(x - x_cpu) / np.abs(x_cpu)))
+    print(f"  15c: {t_dist:.2f} s on the card, {t_dist_cpu:.2f} s on the CPU; minimizer "
+          f"{x.tolist()} (CPU {x_cpu.tolist()}), max rel diff {d:.3e} [{smi}]")
+    check(bool(raw["converged"]) and conv_cpu, "15c converged on the card and on the CPU")
+    check(d <= DISTRIBUTED_RTOL, f"15c minimizer within {DISTRIBUTED_RTOL:g} of the CPU's")
+    print(f"== phase 15 took {time.perf_counter() - t0:.2f} s")
 
 
 if __name__ == "__main__":

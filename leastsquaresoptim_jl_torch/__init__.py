@@ -24,7 +24,7 @@ checkpoint and resume (``utils.checkpoint``); the entry points
 problems (``models.minpack``, ``models.nist``).
 """
 
-from . import config, parallel, utils
+from . import config, models, parallel, utils
 from .api import optimize, optimize_problem, polish, solve
 from .batch import solve_batch
 from .loss import LOSSES, robustify
@@ -48,7 +48,7 @@ from .result import (
 from .solver.base import LSMR, QR, BlockCholesky, Cholesky
 
 __all__ = [
-    "config", "parallel", "utils", "solve", "optimize", "optimize_problem",
+    "config", "models", "parallel", "utils", "solve", "optimize", "optimize_problem",
     "polish", "solve_batch", "curve_fit", "curve_fit_batch", "LOSSES",
     "robustify", "optimize_multistart", "latin_hypercube_starts",
     "best_of_raw", "Dogleg", "LevenbergMarquardt", "Options",

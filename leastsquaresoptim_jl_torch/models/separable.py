@@ -386,15 +386,18 @@ def _coefficients_and_residual(P, y):
     P = torch.where(alive[..., None, None], P, eye)
     G = P.mT @ P
     b = (P.mT @ y[..., None])[..., 0]
-    scale2 = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1) / p  # mean col norm^2
+    # Mean column norm^2, kept (..., 1): forward mode gives the tangent of
+    # a Python float times a 0-d float32 tensor in float64, and one fit's
+    # scale is 0-d, so its float64 tangent would meet P's in P @ c below.
+    scale2 = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1, keepdim=True) / p
     ridge = eps * scale2 + tiny
     eye_p = torch.eye(p, dtype=P.dtype, device=P.device)
-    c_safe = spd_chol_solve(G + ridge[..., None, None] * eye_p, b)
+    c_safe = spd_chol_solve(G + ridge[..., None] * eye_p, b)
     r_safe = y - (P @ c_safe[..., None])[..., 0]
     if p > 8:  # no unrolled QR past the small-p regime
         return (torch.where(alive[..., None], c_safe, torch.zeros_like(c_safe)),
                 torch.where(alive[..., None], r_safe, y))
-    floor2 = (eps * scale2 + tiny) * eps  # ~ (eps * colnorm)^2
+    floor2 = ((eps * scale2 + tiny) * eps)[..., 0]  # ~ (eps * colnorm)^2
     ok, _, _ = _qr_route(P.detach(), y.detach(), floor2.detach())
     P_in = torch.where(ok[..., None, None], P, eye)
     f2_in = torch.where(ok, floor2, torch.full_like(floor2, eps * eps))

@@ -99,6 +99,32 @@ def _central_difference_jacobian(residual_fn: Callable) -> Callable:
     return jac_fn
 
 
+def _check_autodiff(autodiff):
+    if autodiff not in ("forward", "reverse", "central"):
+        raise ValueError(
+            f"Invalid automatic differentiation method {autodiff!r}; "
+            "expected 'forward', 'reverse' or 'central'."
+        )
+
+
+def synthesize_jacobian(residual_fn: Callable, autodiff: str = "forward") -> Callable:
+    """Build ``jac_fn(x) -> J`` from a pure residual function (the JAX
+    package's ``synthesize_jacobian``; reference: src/types.jl:54-66).
+
+    ``'forward'`` is ``torch.func.jacfwd``'s rule, the jvp vmapped over the
+    n basis tangents (``_forward_res_jac``, which also gives J r's dtype),
+    ``'reverse'`` is ``torch.func.jacrev`` and ``'central'`` central
+    differences. Any other value is a ``ValueError``. Every Jacobian this
+    module synthesizes is built here."""
+    _check_autodiff(autodiff)
+    if autodiff == "forward":
+        res_jac_fn = _forward_res_jac(residual_fn)
+        return lambda x: res_jac_fn(x)[1]
+    if autodiff == "reverse":
+        return torch.func.jacrev(residual_fn)
+    return _central_difference_jacobian(residual_fn)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class LeastSquaresProblem:
     """An immutable nonlinear least-squares problem: minimize sum(f(x)^2).
@@ -191,14 +217,6 @@ def _one_fit_residual(f: Callable) -> Callable:
     return residual_fn
 
 
-def _check_autodiff(autodiff):
-    if autodiff not in ("forward", "reverse", "central"):
-        raise ValueError(
-            f"Invalid automatic differentiation method {autodiff!r}; "
-            "expected 'forward', 'reverse' or 'central'."
-        )
-
-
 def least_squares_problem(
     f: Optional[Callable] = None,
     x=None,
@@ -254,16 +272,12 @@ def least_squares_problem(
         sparse = is_sparse(user_g(x))
         res_jac_fn = None if sparse else (
             lambda xx: (residual_fn(xx), jac_fn(xx)))
-    elif autodiff == "forward":
-        res_jac_fn = _forward_res_jac(residual_fn)
-        jac_fn = lambda xx: res_jac_fn(xx)[1]  # noqa: E731
-        shares_primal = True
     else:
-        jac_fn = (
-            torch.func.jacrev(residual_fn) if autodiff == "reverse"
-            else _central_difference_jacobian(residual_fn)
-        )
-        res_jac_fn = lambda xx: (residual_fn(xx), jac_fn(xx))  # noqa: E731
+        jac_fn = synthesize_jacobian(residual_fn, autodiff)
+        # Forward mode evaluates the primal once for both r and J.
+        shares_primal = autodiff == "forward"
+        res_jac_fn = _forward_res_jac(residual_fn) if shares_primal else (
+            lambda xx: (residual_fn(xx), jac_fn(xx)))
     return LeastSquaresProblem(
         residual_fn=residual_fn,
         x0=x,
@@ -316,14 +330,13 @@ def _batched_problem(
         output_length = int(residual_fn(x0_batch).shape[-1])
     shares_primal = autodiff == "forward"
     if shares_primal:
+        # Each row's residual depends on that row alone, so the forward
+        # rule's tangent e_j in every row gives column j of every fit.
         res_jac_fn = _forward_res_jac(residual_fn)
-        jac_fn = lambda xb: res_jac_fn(xb)[1]  # noqa: E731
+        jac_fn = synthesize_jacobian(residual_fn, autodiff)
     else:
-        if autodiff == "reverse":
-            per_fit = torch.func.jacrev(one)
-        else:
-            def per_fit(xx, d):
-                return _central_difference_jacobian(lambda z: one(z, d))(xx)
+        def per_fit(xx, d):
+            return synthesize_jacobian(lambda z: one(z, d), autodiff)(xx)
         jac = torch.func.vmap(per_fit, in_dims=in_dims)
         jac_fn = lambda xb: jac(xb, data)  # noqa: E731
         res_jac_fn = lambda xb: (residual_fn(xb), jac_fn(xb))  # noqa: E731

@@ -12,9 +12,11 @@ which criterion fired. The errors are pinned as the JAX package's
 tests/test_api.py pins them.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

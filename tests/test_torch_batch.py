@@ -15,9 +15,11 @@ of tests/test_batch.py that take Dogleg or bounds, at B = 2000 where that
 file runs 20000.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

@@ -12,9 +12,11 @@ eps).
 ``optimize_multistart`` takes the same ``autodiff``.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

@@ -8,9 +8,11 @@ minimizers within 1e-10; and the port's batch equals its own single
 solves.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

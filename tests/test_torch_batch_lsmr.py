@@ -16,9 +16,11 @@ the varied starts run LM only. The exp_saturation fits carry noise, and
 run both optimizers with and without a 0.75 fraction stop.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax
 import jax.numpy as jnp

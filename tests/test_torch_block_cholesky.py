@@ -19,9 +19,11 @@ default Hutchinson route is held to the optimum only (1e-3 of the dense-QR
 route's minimizer, the JAX test's criterion).
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax
 import jax.numpy as jnp

@@ -11,9 +11,11 @@ This file imports neither JAX nor the JAX package:
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_block_cholesky_gpu.py
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import leastsquaresoptim_jl_torch as lt
 from leastsquaresoptim_jl_torch.models import minpack

@@ -10,9 +10,11 @@ Across packages: ``resume_x0`` reads either package's file (both write
 name.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

@@ -2,9 +2,11 @@
 every constant equal, and the dtype-scaled tolerance defaults equal for
 each floating dtype (exact: both compute from the same eps)."""
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

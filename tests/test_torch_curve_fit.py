@@ -18,11 +18,13 @@ PyTorch port against the JAX package, in float64 on the CPU.
   truth, 300 iterations at most. The VarPro route over the zoo is in test_torch_curve_fit_varpro.py.
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 import leastsquaresoptim_jl_torch as lt
 import leastsquaresoptim_jl_tpu as lso

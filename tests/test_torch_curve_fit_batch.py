@@ -19,13 +19,15 @@ iteration counts are not compared). Bounded fits, separable and joint,
 against the JAX package: minimizers within 1e-10 relative, equal
 iterations and converged masks."""
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import os
 import subprocess
 import sys
 
 import numpy as np
-import pytest
-import torch
 
 import jax.numpy as jnp
 

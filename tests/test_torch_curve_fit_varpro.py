@@ -7,9 +7,11 @@ test_torch_curve_fit.py's data and limits (``batch_matches_jax``). Also
 robust joint fits (``loss=`` through ``robustify``) against the JAX
 package on the same data with three outliers per fit."""
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import leastsquaresoptim_jl_torch as lt
 import leastsquaresoptim_jl_tpu as lso

@@ -9,9 +9,11 @@ Minimizers agree to 1e-8 and iterations, counters and flags are equal
 unfused trajectory: the same iterations, minimizers within 1e-12.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

@@ -19,6 +19,10 @@ the batch x rows layout of ``solve_sharded``, on the CPU.
   matches (1e-8) and which reaches the truth (1e-4, the JAX test's gate).
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import importlib.util
 import multiprocessing
 import os
@@ -26,7 +30,6 @@ import socket
 import time
 
 import numpy as np
-import torch
 import torch.distributed as dist
 
 import jax

@@ -9,9 +9,11 @@ False, so the test means the same on a machine with a card) raises naming
 ``device="cpu"``, and with a card (patched in) the data goes to the
 current card, not to card 0."""
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import leastsquaresoptim_jl_torch as lt
 from leastsquaresoptim_jl_torch._device import data_device

@@ -13,9 +13,11 @@ guard of the correction sits on rounding there), so they are no parity
 cases.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

@@ -7,9 +7,11 @@ shapes of tests/test_gram.py, with that file's float32 tolerances
 (rtol 1e-5, atol 1e-4: accumulation order only). The kernel itself runs
 on the card only (tests/test_torch_kernel_gpu.py)."""
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

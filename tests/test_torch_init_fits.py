@@ -6,11 +6,13 @@ as the JAX tests ask, the same iterations and f_calls, minimizers within
 1e-10 relative (1e-8 over a batch's converged fits, whose lockstep loop
 carries more rounding)."""
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 import leastsquaresoptim_jl_torch as lt
 import leastsquaresoptim_jl_tpu as lso

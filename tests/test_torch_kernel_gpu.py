@@ -7,9 +7,11 @@ so it also runs on a machine without them:
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_kernel_gpu.py
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 from leastsquaresoptim_jl_torch import _build
 from leastsquaresoptim_jl_torch.interop import kernel_state

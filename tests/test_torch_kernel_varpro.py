@@ -14,9 +14,11 @@ layouts. The CUDA kernel itself is tested on the card by
 tests/test_torch_kernel_gpu.py.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

@@ -6,9 +6,11 @@ and the stored trace (iteration, ssr, maxabs_gr) to 1e-8 relative or
 1e-12 absolute (near the optimum ssr and the gradient are tiny sums of
 O(1) terms, so reduction order shows at ~1e-15 absolute)."""
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

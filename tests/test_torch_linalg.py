@@ -6,9 +6,11 @@ sum to that accuracy; their reduction orders differ), checked at 1e-28 in
 float64 and 1e-13 in float32; the small SPD solves run the same unrolled
 arithmetic, checked at 1e-12 in float64."""
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

@@ -13,11 +13,13 @@ CPU (float32 for the overflow clamp).
   raises; ``f_scale`` and unknown losses are validated.
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 import leastsquaresoptim_jl_torch as lt
 import leastsquaresoptim_jl_tpu as lso

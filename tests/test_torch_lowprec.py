@@ -21,13 +21,15 @@ Every route the JAX package refuses in half precision raises a
 shown to fail on the same input in the same test.
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 import leastsquaresoptim_jl_torch as lt
 import leastsquaresoptim_jl_tpu as lso

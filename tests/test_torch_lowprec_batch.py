@@ -15,12 +15,14 @@ threshold in float16 (models/separable.py ``_dead_norm2``). There the
 port is held to the JAX package's joint route on the same data instead.
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import functools
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 import leastsquaresoptim_jl_torch as lt
 import leastsquaresoptim_jl_tpu as lso

@@ -7,6 +7,8 @@ tests/test_torch_lowprec.py's."""
 
 import pytest
 
+torch = pytest.importorskip("torch")
+
 from test_torch_lowprec import assert_same_fit, both, broyden
 
 

@@ -11,9 +11,11 @@ iteration. The solutions are also held to dense solves, as
 tests/test_lsmr_core.py holds the JAX package's.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

@@ -24,11 +24,13 @@ multi-dimensional residuals, and one test that every piece still missing
 says so.
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import dataclasses
 
 import numpy as np
-import pytest
-import torch
 
 import jax.numpy as jnp
 
@@ -451,6 +453,8 @@ NOW_PORTED = {
         optimizer=lt.LevenbergMarquardt(lt.Cholesky()), autodiff="reverse"),
     "batched geodesic": lambda: _best_row(
         optimizer=lt.LevenbergMarquardt(lt.Cholesky(), geodesic=True)),
+    "synthesize_jacobian": lambda: lt.optimize(
+        rosenbrock_t, X2, g=lt.problem.synthesize_jacobian(rosenbrock_t, "reverse")),
 }
 
 

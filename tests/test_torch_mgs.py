@@ -17,11 +17,13 @@ float64 ``lstsq`` of the rounded data: x within 2 eps cond(A) and
 cond(A) and 0.76 eps on these shapes).
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 from leastsquaresoptim_jl_torch.ops import linalg as tl
 from leastsquaresoptim_jl_torch.solver import qr as tqr

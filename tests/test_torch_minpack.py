@@ -6,9 +6,11 @@ themselves and the per-instance solves are held to the JAX package's in
 test_torch_minpack_parity.py.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import leastsquaresoptim_jl_torch as lt
 from leastsquaresoptim_jl_torch.models import minpack as tm

@@ -15,11 +15,13 @@ on the CPU.
   the contract, not the values.
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 import leastsquaresoptim_jl_torch as lt
 import leastsquaresoptim_jl_tpu as lso

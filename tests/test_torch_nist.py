@@ -13,11 +13,13 @@ test_torch_nist_lm.py, so that the two 32-run scoreboards run in parallel).
   its ``MIN_SCORE`` of 30, and the MGH09/MGH10 multistart escape.
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 import leastsquaresoptim_jl_torch as lt
 import leastsquaresoptim_jl_tpu as lso

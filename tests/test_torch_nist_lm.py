@@ -15,12 +15,14 @@ ROADMAP.md Queue 3. The scoreboard over the same runs needs 31 of 32
 (``MIN_SCORE`` of tests/test_nist.py).
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import functools
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 import leastsquaresoptim_jl_torch as lt
 import leastsquaresoptim_jl_tpu as lso

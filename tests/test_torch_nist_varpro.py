@@ -22,11 +22,13 @@ package, in float64 on the CPU.
   within 1e-3, with the JAX package's iterations.
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 import leastsquaresoptim_jl_torch as lt
 import leastsquaresoptim_jl_tpu as lso

@@ -12,9 +12,11 @@ probe set and later ones fold 8 fresh probes in, and a solve with the
 estimate reaches the quality of one with exact column norms.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

@@ -8,9 +8,11 @@ package's minimizer (container types, keys, leaf shapes and dtypes),
 values within 1e-12, equal counters.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

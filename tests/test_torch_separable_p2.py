@@ -24,11 +24,13 @@ stated.
   jnp.argsort), under torch.func.vmap.
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 from leastsquaresoptim_jl_torch.models import nist as tn
 from leastsquaresoptim_jl_torch.models import separable as ts
@@ -81,6 +83,23 @@ def test_coefficients_value_and_jacfwd_match_jax(p):
         for a, b in zip(Jt, Jj):
             assert np.isfinite(a.numpy()).all()
             _close(a.numpy(), b, 1e-12)
+
+
+@pytest.mark.parametrize("p", [2, 3])
+def test_float32_one_fit_jacfwd_stays_float32(p):
+    """One fit's scale is 0-d, and forward mode gives a Python float times
+    a 0-d float32 tensor a float64 tangent: it used to meet P's float32
+    tangent in P @ c and raise. The derivatives now stay float32 and match
+    the JAX package's float32 ones to 1e-5 of their scale."""
+    rng = np.random.default_rng(p)
+    m = 24
+    P = (rng.uniform(0.1, 1.0, (m, p)) + np.eye(m, p)).astype(np.float32)
+    y = rng.standard_normal(m).astype(np.float32)
+    Jt = torch.func.jacfwd(ts._coefficients_and_residual)(torch.tensor(P), torch.tensor(y))
+    Jj = jax.jit(jax.jacfwd(js._coefficients_and_residual))(jnp.asarray(P), jnp.asarray(y))
+    for a, b in zip(Jt, Jj):
+        assert a.dtype == torch.float32 and b.dtype == jnp.float32
+        _close(a.numpy(), b, 1e-5)
 
 
 def _conditioned(log_cond, dtype=np.float64):

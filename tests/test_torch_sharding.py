@@ -14,13 +14,15 @@ Each test starts two processes with the spawn method and gives them 60 s
 not either.
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import multiprocessing
 import os
 import socket
 
 import numpy as np
-import pytest
-import torch
 import torch.distributed as dist
 
 import leastsquaresoptim_jl_torch as lt

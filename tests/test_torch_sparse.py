@@ -13,9 +13,11 @@ covariance, a user's analytic sparse ``g``, and the n = 1500 banded
 LM(LSMR(maxiter=60)) run.
 """
 
-import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
 
 import jax.numpy as jnp
 

@@ -16,10 +16,12 @@ PyTorch port against the JAX package, in float64 on the CPU.
   the same iterations, and within 1e-8 of the truth.
 """
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 import leastsquaresoptim_jl_torch as lt
 import leastsquaresoptim_jl_tpu as lso
