@@ -13,7 +13,8 @@ rest of the public surface (synthesize_jacobian, the examples).
 
     python3 chip_smoke.py
 
-Phases (each prints its own lines; any failure raises and exits non-zero):
+Phases (each prints its own lines, its header with the seconds since the
+script started; any failure raises and exits non-zero):
 
 1. Card and build: the card's name and power limit (nvidia-smi), and the
    time to build the CUDA kernels from leastsquaresoptim_jl_torch/csrc/,
@@ -47,7 +48,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    >= 99% converged; median relative alpha difference from phase 3 <= 1e-5.
 5. Times, after warm-up, with torch.cuda.synchronize() around each timed
    region: the routes of phases 3 and 4 and the plain reference route, and
-   one K = 8 launch of the kernel against its plain version (CUDA events).
+   one K = 8 launch of the kernel against its plain version. Every
+   kernel_varpro time of the kernels line (here, 10f and 14c) is taken one
+   way (``interleaved_ms``): each of the timed launches is warmed up for
+   0.5 s, then all are timed in their order and in reverse (A, B, B, A),
+   each a median of 20 launches between CUDA events (``launch_ms``: the
+   launches queue behind about 10 ms of GPU sleep, so that the events
+   time the kernel, not the host's launch path); its ms is the mean of
+   its two medians.
 5b. The lanes sweep: one K = 8 launch at the main path's shapes (B =
    131072, m = 64, float32) for G = 1, 2, 4, 8, 16, 32 lanes per fit:
    its time (median of 20, CUDA events, as phase 5), its agreement with
@@ -294,12 +302,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    package's 5.313e-03) and 3.9e-3 (float16: 4 eps);
    the kernel route launches, the plain route does not.
    (c) One K = 8 launch at 14b's shapes in float16 against float32, both
-   at float16's tolerances: float16 bit for bit against its plain
-   version; ms (median of 20, CUDA events), bound (2-byte x, Y and state;
-   operations at the card's peak outside the tensor cores for the type,
-   float16 133.8 TFLOP/s, float32 67) and share of each, the float16
-   instance's bound also at the float32 rate its arithmetic issues, and
-   the float16 plain version's ms.
+   at float16's tolerances: float16 (csrc/kernel_varpro_f16.cuh, packed
+   half, two fits to a __half2) bit for bit against its plain version;
+   ms (phase 5's method, in the order float32, float16, the float16
+   plain version, and back), bound (2-byte x, Y and state; operations at
+   the card's peak outside the tensor cores for the type, float16 133.8
+   TFLOP/s, float32 67) and share of each, the float16 bound's two terms,
+   the binding one, and the operations term without contraction (each
+   add and multiply its own instruction: twice the term), the float16 /
+   float32 time ratio, the float16 plain version's ms, and ptxas's
+   registers and spills of the float16 instances (none may spill at
+   S <= 16).
    (d) Measurement only: float32 MGS QR (ops/linalg.mgs_solve_with_diag)
    against Householder (qr_solve_with_diag) at the stacked damped
    systems of fit batches (131072, 66, 2), (4096, 72, 8), (1024, 320,
@@ -398,6 +411,15 @@ def check(ok, what):
     print(f"  ok: {what}")
 
 
+_T0 = time.perf_counter()
+
+
+def header(text):
+    """Print a phase's header line with the seconds since the script
+    started, so that each phase's share of the time limit can be read."""
+    print(f"{text} (t = {time.perf_counter() - _T0:.1f} s)")
+
+
 def sync_time(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -421,7 +443,7 @@ def main():
     name = torch.cuda.get_device_name(0)
 
     # -- phase 1: card and build ------------------------------------------
-    print("== phase 1: card and build")
+    header("== phase 1: card and build")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -478,7 +500,7 @@ def main():
                                                P0[:, 1], **kernel_kw)
 
     kv.launches = 0
-    print(f"== phase 3: curve_fit_batch on the card (B={B_MAIN}, m={M}, float32)")
+    header(f"== phase 3: curve_fit_batch on the card (B={B_MAIN}, m={M}, float32)")
     t_main, raw = sync_time(run_main)
     check(kv.launches == 0,
           f"phase 3 (the plain route) launched kernel_varpro {kv.launches} times, 0 expected")
@@ -492,7 +514,7 @@ def main():
     check(err <= 1e-4, "phase 3 median relative error vs truth <= 1e-4")
     check(raw["minimizer"].shape == (B_MAIN, 2), "phase 3 minimizer shape")
 
-    print("== phase 4: kernel route varpro_lm_p1_kernel_solve on the card")
+    header("== phase 4: kernel route varpro_lm_p1_kernel_solve on the card")
     kv.launches = 0
     t_kern, out = sync_time(run_kernel)
     main_launches = kv.launches
@@ -507,7 +529,7 @@ def main():
     check(d_alpha <= 1e-5, "phase 4 median alpha rel diff from phase 3 <= 1e-5")
 
     # -- phase 5: times ---------------------------------------------------
-    print(f"== phase 5: times (B={B_MAIN}, m={M}, float32) on {smi}")
+    header(f"== phase 5: times (B={B_MAIN}, m={M}, float32) on {smi}")
     reps = 5
     for label, fn in (("curve_fit_batch route", run_main),
                       ("kernel route", run_kernel),
@@ -529,17 +551,17 @@ def main():
                  torch.float32, kv.lanes_per_fit(M))
     print(f"  alpha/c max abs diff {max_abs:.3e}")
 
-    launch_ms(kv._launch_kernel, x, Y, state0, tols, 3)  # warm-up
-    launch_ms(kv._launch_reference, x, Y, state0, tols, 3)
-    ms_k = launch_ms(kv._launch_kernel, x, Y, state0, tols)
-    ms_r = launch_ms(kv._launch_reference, x, Y, state0, tols)
+    ms, _ = interleaved_ms({
+        "kernel": lambda: launch_ms(kv._launch_kernel, x, Y, state0, tols),
+        "plain": lambda: launch_ms(kv._launch_reference, x, Y, state0, tols)})
+    ms_k, ms_r = ms["kernel"], ms["plain"]
     fit_iters = int((sk[:, kv._ITERS] - state0[:, kv._ITERS]).sum().item())
     bound_k, bound_by_k = varpro_bound(B_MAIN, M, fit_iters, 4)
     print(f"  one launch K={K}, {kv.lanes_per_fit(M)} lanes per fit: kernel "
-          f"{ms_k:.4f} ms, plain version {ms_r:.4f} ms (median of 20, CUDA "
-          f"events); bound {bound_k:.4f} ms ({bound_by_k}; {fit_iters} "
-          f"fit-iterations), kernel at {bound_k / ms_k:.1%} of it (at most 50% "
-          f"without FMA contraction); no single library call computes it [{smi}]")
+          f"{ms_k:.4f} ms, plain version {ms_r:.4f} ms ({INTERLEAVED}); bound "
+          f"{bound_k:.4f} ms ({bound_by_k}; {fit_iters} fit-iterations), kernel at "
+          f"{bound_k / ms_k:.1%} of it (at most 50% without FMA contraction); no single "
+          f"library call computes it [{smi}]")
     phase_lanes_sweep(x, Y, state0, tols, ptxas, smi)
     phase_mask_probe(x, Y, state0, tols, smi)
 
@@ -570,7 +592,7 @@ def main():
     }, {
         "name": "kernel_varpro_f16",
         "route": "cuda",
-        "source": "leastsquaresoptim_jl_torch/csrc/kernel_varpro.cuh",
+        "source": "leastsquaresoptim_jl_torch/csrc/kernel_varpro_f16.cuh",
         "replaces": "leastsquaresoptim_jl_tpu/ops/kernel_varpro.py:161",
         **f16_entry,
     }, {
@@ -666,7 +688,7 @@ def phase_varpro_parity(dev):
     from leastsquaresoptim_jl_torch.interop import kernel_state
     from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
 
-    print("== phase 2: kernel_varpro vs plain PyTorch version (B=4099)")
+    header("== phase 2: kernel_varpro vs plain PyTorch version (B=4099)")
     tols = (TOLS["x_tol"], TOLS["f_tol"], TOLS["g_tol"])
     for basis in BASIS_ALPHA:
         for m in (64, 37, 1024):
@@ -756,7 +778,7 @@ def phase_varpro_parity_f16(dev):
     from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
 
     tols = f16_tols()
-    print(f"== phase 2 (float16): kernel_varpro vs plain version (B=4099, O(1) data, "
+    header(f"== phase 2 (float16): kernel_varpro vs plain version (B=4099, O(1) data, "
           f"tolerances {tols})")
     for basis in BASIS_ALPHA:
         for m in (64, 37, 1024):
@@ -779,11 +801,20 @@ def phase_varpro_parity_f16(dev):
                                  f"converged {conv:.6f})", ok_, or_)
 
 
+# GPU cycles (about 10 ms) that launch_ms's launches queue behind. Without
+# them the card drains its queue between launches, and a pair of events
+# times the host's launch path (about 0.08 ms of Python a launch, as long
+# as one float16 launch) instead of the kernel.
+QUEUE_CYCLES = 20_000_000
+
+
 def launch_ms(launch, x, Y, state0, tols, n=20, lanes=None, basis="exp_saturation"):
     """Median of ``n`` single K-iteration launches from ``state0``, each
-    between its own CUDA events."""
+    between its own CUDA events, all enqueued behind QUEUE_CYCLES of GPU
+    sleep."""
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    torch.cuda._sleep(QUEUE_CYCLES)
     for i in range(n):
         st = state0.clone()
         starts[i].record()
@@ -791,6 +822,33 @@ def launch_ms(launch, x, Y, state0, tols, n=20, lanes=None, basis="exp_saturatio
         ends[i].record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
+# The warm-up of each timer of ``interleaved_ms``, seconds: 20 launches of
+# a kernel take about 2 ms, too little to bring a card that was idle back
+# to its clocks.
+WARM_UP_S = 0.5
+
+
+INTERLEAVED = (f"after a {WARM_UP_S} s warm-up of each, the mean of two medians of 20 "
+               f"launches queued behind a GPU sleep, CUDA events, timed in order and in "
+               f"reverse")
+
+
+def interleaved_ms(timers):
+    """The times of kernel_varpro's launches, one method for every row of
+    the kernels line: each of ``timers`` (name -> a call returning one
+    ``launch_ms`` median) is warmed up for WARM_UP_S, then all are timed in
+    their order and again in reverse (A, B, B, A). Returns name -> ms, the
+    mean of its two medians, and name -> the two medians."""
+    for fn in timers.values():
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < WARM_UP_S:
+            fn()
+    reads = {k: [] for k in timers}
+    for k in [*timers, *reversed(timers)]:
+        reads[k].append(timers[k]())
+    return {k: float(np.mean(v)) for k, v in reads.items()}, reads
 
 
 def ptxas_report(log):
@@ -819,8 +877,9 @@ def varpro_instance(ptxas, dtype, basis, lanes, m):
     from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
 
     S = kv._run(m, lanes)
-    pattern = re.compile(rf"varpro_lm_p1_kernelI{'f' if dtype == torch.float32 else 'd'}"
-                         rf"Li{lanes}ELi{S}ENS_\d+{BASIS_FUNCTOR[basis]}E")
+    kernel = {torch.float16: "varpro_lm_p1_f16_kernelI", torch.float32: "varpro_lm_p1_kernelIf",
+              torch.float64: "varpro_lm_p1_kernelId"}[dtype]
+    pattern = re.compile(rf"{kernel}Li{lanes}ELi{S}ENS_\d+{BASIS_FUNCTOR[basis]}E")
     hits = [v for k, v in ptxas.items() if pattern.search(k)]
     return S, (hits[0] if len(hits) == 1 else None)
 
@@ -830,7 +889,7 @@ def phase_lanes_sweep(x, Y, state0, tols, ptxas, smi):
     from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
 
     B, m = Y.shape
-    print(f"== phase 5b: lanes per fit at B={B}, m={m}, float32, one K={K} launch")
+    header(f"== phase 5b: lanes per fit at B={B}, m={m}, float32, one K={K} launch")
     ms = {}
     for lanes in (1, 2, 4, 8, 16, 32):
         sk, sr = one_launch("exp_saturation", x, Y, state0, tols, lanes)
@@ -859,18 +918,24 @@ def phase_lanes_sweep(x, Y, state0, tols, ptxas, smi):
 
 
 def variant_launch(lib):
-    """``_launch_kernel`` in float32 through another build's library."""
+    """``_launch_kernel`` in float32 or float16 through another build's
+    library."""
     from leastsquaresoptim_jl_torch import config
     from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
 
     def launch(basis, x, Y, state, k_iters, tols, max_iters, lanes=None):
         B, m = Y.shape
-        lanes = kv._check_lanes(m, lanes)
-        err = lib.lso_kernel_varpro_f32(
-            x.data_ptr(), Y.data_ptr(), state.data_ptr(), B, m, k_iters, *tols,
-            max_iters, config.MIN_STEP_QUALITY, config.MIN_TRUST_REGION_RADIUS,
-            config.MAX_TRUST_REGION_RADIUS, kv.BASES[basis][2], lanes,
-            kv._check_block_fits(None, lanes), torch.cuda.current_stream().cuda_stream)
+        dt = Y.dtype
+        lanes = kv._check_lanes(m, lanes, dt)
+        fn = getattr(lib, {torch.float32: "lso_kernel_varpro_f32",
+                           torch.float16: "lso_kernel_varpro_f16"}[dt])
+        consts = [config.in_dtype(v, dt) for v in (
+            *tols, config.MIN_STEP_QUALITY, config.MIN_TRUST_REGION_RADIUS,
+            config.MAX_TRUST_REGION_RADIUS)]
+        err = fn(
+            x.data_ptr(), Y.data_ptr(), state.data_ptr(), B, m, k_iters, *consts[:3],
+            max_iters, *consts[3:], kv.BASES[basis][2], lanes,
+            kv._check_block_fits(None, lanes, dt), torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"the measurement build failed to launch: CUDA error {err}")
         return state
@@ -878,6 +943,9 @@ def variant_launch(lib):
 
 
 VARPRO_PROBE_FLAGS = ["-DLSO_VARPRO_PROBE=1"]
+# The float32 and float64 sources phase 5c's measurement build takes.
+VARPRO_PROBE_SOURCES = ["kernel_varpro.cu", "kernel_varpro_michaelis_menten.cu",
+                        "kernel_varpro_power.cu"]
 
 
 def gram_probe_flags():
@@ -892,7 +960,7 @@ def build_everything():
 
     src = _build.SOURCE_DIR
     jobs = [(sorted(src.glob("*.cu")), []),
-            (sorted(src.glob("kernel_varpro*.cu")), VARPRO_PROBE_FLAGS)]
+            ([src / name for name in VARPRO_PROBE_SOURCES], VARPRO_PROBE_FLAGS)]
     jobs += [([src / "gram.cu"], flags) for flags in gram_probe_flags().values()]
     _build._build(jobs)
     return sum(len(sources) for sources, _ in jobs)
@@ -904,10 +972,9 @@ def phase_mask_probe(x, Y, state0, tols, smi):
     from leastsquaresoptim_jl_torch import _build
     from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
 
-    print("== phase 5c: kernel_varpro with every run masked (LSO_VARPRO_PROBE=1)")
+    header("== phase 5c: kernel_varpro with every run masked (LSO_VARPRO_PROBE=1)")
     t0 = time.perf_counter()
-    sources = sorted(p.name for p in _build.SOURCE_DIR.glob("kernel_varpro*.cu"))
-    lib = _build.load_variants(sources, {"masked": VARPRO_PROBE_FLAGS})["masked"]
+    lib = _build.load_variants(VARPRO_PROBE_SOURCES, {"masked": VARPRO_PROBE_FLAGS})["masked"]
     print(f"  loaded (built in phase 1 unless run alone) in {time.perf_counter() - t0:.2f} s")
     masked = variant_launch(lib)
     for lanes in (2, 4, 8):
@@ -963,33 +1030,38 @@ VARPRO_OPS_PER_SAMPLE_ITERATION = {
 }
 
 
-def bound_of(nbytes, flops, peak):
-    """(least ms, binding term): bytes over HBM bandwidth or operations
-    over the peak rate for their type, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_MS
-    t_ops = flops / PEAK_FLOPS_PER_MS[peak]
+def bound_of(t_bytes, t_ops):
+    """(least ms, binding term) of a bytes term and an operations term,
+    each in ms: whichever is larger."""
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def gram_bound(m, n, dtype):
     """The Gram's bound: J and y read once and G, J'y written once (in J's
-    dtype); the m n (n + 1) FLOPs of the upper triangle with its diagonal
-    at the tensor-core rate for J's type."""
+    dtype) over HBM bandwidth; the m n (n + 1) FLOPs of the upper triangle
+    with its diagonal at the tensor-core rate for J's type."""
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = (m * n + m + n * n + n) * size
-    return bound_of(nbytes, m * n * (n + 1),
-                    "bf16" if dtype == torch.bfloat16 else "tf32")
+    peak = "bf16" if dtype == torch.bfloat16 else "tf32"
+    return bound_of(nbytes / HBM_BYTES_PER_MS, m * n * (n + 1) / PEAK_FLOPS_PER_MS[peak])
 
 
-def varpro_bound(B, m, fit_iterations, size, basis="exp_saturation", peak=None):
-    """kernel_varpro's bound for one launch of ``size``-byte elements: Y
-    and x read once, the (B, 8) state read and written once; the
-    operations of the fit-iterations the launch ran, at the card's peak
-    outside the tensor cores for the elements' type (float32 67, float16
-    133.8 TFLOP/s), or at ``peak``'s rate."""
+def varpro_terms(B, m, fit_iterations, size, basis="exp_saturation"):
+    """kernel_varpro's two terms for one launch of ``size``-byte elements,
+    in ms: Y and x read once and the (B, 8) state read and written once,
+    over HBM bandwidth; the operations of the fit-iterations the launch
+    ran, at the card's peak outside the tensor cores for the elements'
+    type (float32 67, float16 133.8 TFLOP/s)."""
     nbytes = (B * m + m + 2 * B * 8) * size
     ops = fit_iterations * m * VARPRO_OPS_PER_SAMPLE_ITERATION[basis]
-    return bound_of(nbytes, ops, peak or ("fp16" if size == 2 else "fp32"))
+    return (nbytes / HBM_BYTES_PER_MS,
+            ops / PEAK_FLOPS_PER_MS["fp16" if size == 2 else "fp32"])
+
+
+def varpro_bound(B, m, fit_iterations, size, basis="exp_saturation"):
+    """kernel_varpro's bound for one launch: (least ms, binding term) of
+    ``varpro_terms``."""
+    return bound_of(*varpro_terms(B, m, fit_iterations, size, basis))
 
 
 def gram_times(J, y, smi, what):
@@ -1061,7 +1133,7 @@ def phase_gram(dev, smi):
     Gram on the card; times at every full-size shape."""
     from leastsquaresoptim_jl_torch.ops import gram
 
-    print("== phase 6: Gram kernel vs plain version vs float64 on the card")
+    header("== phase 6: Gram kernel vs plain version vs float64 on the card")
     rng = np.random.default_rng(6)
     main = None
     for (m, n), dt in GRAM_SHAPES:
@@ -1104,7 +1176,7 @@ def phase_gram_probes(dev, smi):
     from leastsquaresoptim_jl_torch import _build
     from leastsquaresoptim_jl_torch.ops import gram
 
-    print("== phase 6b: Gram kernel measurement builds (LSO_GRAM_PROBE)")
+    header("== phase 6b: Gram kernel measurement builds (LSO_GRAM_PROBE)")
     t0 = time.perf_counter()
     libs = _build.load_variants(["gram.cu"], gram_probe_flags())
     libs = {"kernel": _build.load(), **libs}
@@ -1159,7 +1231,7 @@ def phase_sharded_gram(dev):
     from leastsquaresoptim_jl_torch.solver.cholesky import solve_spd_system
 
     m, n = 1_048_576, 256
-    print(f"== phase 7: sharded_gram_and_rhs on a one-rank NCCL group ({m}, {n}) float32")
+    header(f"== phase 7: sharded_gram_and_rhs on a one-rank NCCL group ({m}, {n}) float32")
     rng = np.random.default_rng(7)
     x_true = rng.standard_normal(n)
     A = rng.standard_normal((m, n), dtype=np.float32)
@@ -1214,7 +1286,7 @@ def phase_single_fit(dev, smi):
     from leastsquaresoptim_jl_torch import Cholesky, Dogleg, Options, optimize, solve
     from leastsquaresoptim_jl_torch.ops import gram
 
-    print("== phase 8a: Rosenbrock through optimize (Dogleg(QR()) by default), float64")
+    header("== phase 8a: Rosenbrock through optimize (Dogleg(QR()) by default), float64")
     gram.launches = 0
 
     def rosenbrock(x):
@@ -1230,7 +1302,7 @@ def phase_single_fit(dev, smi):
     out = {}
     for dt in (torch.float64, torch.float32):
         problem, lower = config3_problem(dev, dt)
-        print(f"== phase 8b: config #3 bounded Dogleg(Cholesky()) (8192, 1024) {dt}")
+        header(f"== phase 8b: config #3 bounded Dogleg(Cholesky()) (8192, 1024) {dt}")
 
         def run():
             return solve(problem, Dogleg(Cholesky()), lower=lower, options=opts)
@@ -1259,7 +1331,7 @@ def phase_single_fit(dev, smi):
           f"{its / min(ts):.2f} (best of {reps}), {its / float(np.median(ts)):.2f} "
           f"(median) [{smi}]")
 
-    print("== phase 8c: config #3's J at the final iterate through the Gram kernel")
+    header("== phase 8c: config #3's J at the final iterate through the Gram kernel")
     for dt in (torch.float32,):
         problem, raw = out[dt][0], out[dt][1]
         r, J = problem.res_jac_fn(raw["minimizer"])
@@ -1298,7 +1370,7 @@ def phase_lsmr(dev):
     from leastsquaresoptim_jl_torch.solver import lsmr as lsmr_solver
 
     m, n, lam = 4096, 256, 0.7
-    print(f"== phase 9a: LSMR against float64 lstsq at ({m}, {n})")
+    header(f"== phase 9a: LSMR against float64 lstsq at ({m}, {n})")
     rng = np.random.default_rng(9)
     A64 = torch.tensor(rng.standard_normal((m, n)), device=dev)
     b64 = torch.tensor(rng.standard_normal(m), device=dev)
@@ -1401,11 +1473,14 @@ def profile_solve(run, what, smi):
     """One torch.profiler pass over ``run()``: CUDA kernels, device ms,
     busy share (device ms over the wall time of the profiled call) and
     device-to-host copies (each a host read). Returns the kernel count
-    (None when the profiler saw no device events)."""
+    (None when the profiler saw no device events). It records device
+    activity only: recording every CPU operator too lengthens a host-bound
+    solve (by up to 46% on an H100 host), which lowers its busy share, and
+    takes seconds a pass to process."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         secs, _ = sync_time(run)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1425,7 +1500,7 @@ def phase_config4(dev, smi):
     """Phases 9b and 9c: configs #4 (m = 1M) and #5's scale (m = 10M)."""
     from leastsquaresoptim_jl_torch import LSMR, LevenbergMarquardt, Options, solve
 
-    print("== phase 9b: closed-form column norms against AD at blocks=3, n=200")
+    header("== phase 9b: closed-form column norms against AD at blocks=3, n=200")
     residual_fn, colnorms_fn, x0 = banded_problem(3, 200, torch.float32, dev)
     J = torch.func.jacfwd(residual_fn)(x0 + 0.3)
     ad = torch.sum(J * J, dim=0)
@@ -1440,7 +1515,7 @@ def phase_config4(dev, smi):
         label = "closed-form colnorms_fn" if exact else "Hutchinson column norms"
         problem, residual_fn = config4_problem(10, dev, exact)
         x0 = problem.x0
-        print(f"== phase 9b: config #4, m={problem.m}, n={problem.n}, float32, "
+        header(f"== phase 9b: config #4, m={problem.m}, n={problem.n}, float32, "
               f"LM(LSMR(maxiter=60)), 10 iterations, {label}")
         ssr0 = torch.sum(residual_fn(x0) ** 2).item()
 
@@ -1478,7 +1553,7 @@ def phase_config4(dev, smi):
         profile_solve(run, label, smi)
 
     problem, residual_fn = config4_problem(100, dev, True)
-    print(f"== phase 9c: m={problem.m}, n={problem.n}, float32, closed-form "
+    header(f"== phase 9c: m={problem.m}, n={problem.n}, float32, closed-form "
           "colnorms_fn, to convergence from the oscillatory start")
     sign = torch.where(torch.arange(problem.n, device=dev) % 2 == 0, 1.0, -1.0)
     x0c = problem.x0 + 0.1 * sign
@@ -1500,7 +1575,7 @@ def phase_geodesic(dev):
     """Phase 9d: geodesic LM on Rosenbrock, float64."""
     from leastsquaresoptim_jl_torch import LevenbergMarquardt, optimize
 
-    print("== phase 9d: geodesic LM on Rosenbrock, float64")
+    header("== phase 9d: geodesic LM on Rosenbrock, float64")
 
     def rosenbrock(x):
         return torch.stack([1.0 - x[0], 100.0 * (x[1] - x[0] ** 2)])
@@ -1531,7 +1606,7 @@ def phase_sharded_solve(dev):
     from leastsquaresoptim_jl_torch.solver import lsmr as lsmr_solver
 
     m, n = 65_536, 64
-    print(f"== phase 9e: solve_sharded on a one-rank NCCL group, m={m}, n={n}, float32")
+    header(f"== phase 9e: solve_sharded on a one-rank NCCL group, m={m}, n={n}, float32")
     rng = np.random.default_rng(11)
     A = torch.tensor(rng.standard_normal((m, n), dtype=np.float32) / np.sqrt(n),
                      dtype=torch.float32, device=dev)
@@ -1738,7 +1813,7 @@ def reference_jobs():
 
 def phase_minpack(out, smi):
     """Phase 10a: the four MINPACK grids of tests/test_minpack.py."""
-    print("== phase 10a: MINPACK grids (tests/test_minpack.py), float64")
+    header("== phase 10a: MINPACK grids (tests/test_minpack.py), float64")
     for grid, (_, _, _, need_conv) in MINPACK_GRIDS.items():
         runs = {j: r for j, r in out.items() if j[:2] == ("minpack", grid)}
         misses = [(j[2], j[3], j[4], r["ssr"], r["converged"]) for j, r in runs.items()
@@ -1754,7 +1829,7 @@ def phase_nist(out, smi):
     """Phase 10b: the NIST StRD scoreboard of tests/test_nist.py."""
     from leastsquaresoptim_jl_torch.models import nist
 
-    print("== phase 10b: NIST StRD scoreboard (tests/test_nist.py), float64")
+    header("== phase 10b: NIST StRD scoreboard (tests/test_nist.py), float64")
     for o, s in NIST_OPTIMIZERS:
         runs = {(j[3], j[4]): r for j, r in out.items() if j[:3] == ("nist", o, s)}
         nan = [k for k, r in runs.items() if np.isnan(np.mean(r["minimizer"]))]
@@ -1775,7 +1850,7 @@ def phase_multistart(out, smi):
     """Phase 10c: the MGH09 and MGH10 far-start escapes by multistart."""
     from leastsquaresoptim_jl_torch.models import nist
 
-    print("== phase 10c: multistart escapes, 64 Latin-hypercube starts, float64")
+    header("== phase 10c: multistart escapes, 64 Latin-hypercube starts, float64")
     for name in ("MGH09", "MGH10"):
         r = out[("multistart", name)]
         err = float(np.linalg.norm(np.asarray(r["minimizer"])
@@ -1831,7 +1906,7 @@ def phase_batched_dogleg(dev, pool, smi):
                                    data_axis=(None, 0), output_length=M,
                                    min_converged_fraction=FRAC),
     }
-    print(f"== phase 10d: batched Dogleg at B={B_MAIN}, m={M}, float32")
+    header(f"== phase 10d: batched Dogleg at B={B_MAIN}, m={M}, float32")
     for label, run in runs.items():
         kv.launches = gram.launches = 0
         secs, raw = sync_time(run)
@@ -1846,7 +1921,7 @@ def phase_batched_dogleg(dev, pool, smi):
         time_batch(run, label, smi, B_MAIN)
         profile_batch(run, raw, label, smi)
 
-    print(f"== phase 10d: the first {SINGLE_FITS} fits, float64: one batch against "
+    header(f"== phase 10d: the first {SINGLE_FITS} fits, float64: one batch against "
           "one fit at a time")
     x64 = torch.tensor(xdata, device=dev)
     Y64 = torch.tensor(Y_np[:SINGLE_FITS], device=dev)
@@ -1887,7 +1962,7 @@ def phase_bounded_batches(dev, smi):
     truth = torch.tensor(bt, dtype=torch.float64, device=dev)
     below = truth[:, 1] <= float(lo)
     opts = lt.Options(iterations=ITERATIONS, radius=RADIUS, **TOLS)
-    print(f"== phase 10e: bounded batches, lower b1 = {float(lo)!r} (30th percentile of "
+    header(f"== phase 10e: bounded batches, lower b1 = {float(lo)!r} (30th percentile of "
           f"the truth; {below.double().mean().item():.4f} of the fits below it), "
           f"B={B_MAIN}, m={M}, float32")
     for opt in (lt.LevenbergMarquardt(lt.Cholesky()), lt.Dogleg(lt.Cholesky())):
@@ -1932,7 +2007,7 @@ def phase_kernel_bases(dev, smi):
     rows = {}
     for basis in ("power", "michaelis_menten"):
         xd, Y_np, a0 = basis_data(basis, B_MAIN, M, seed=1)
-        print(f"== phase 10f: {basis} at B={B_MAIN}, m={M}, float32")
+        header(f"== phase 10f: {basis} at B={B_MAIN}, m={M}, float32")
         Y = torch.tensor(Y_np, dtype=torch.float32, device=dev)
         p0 = np.stack([np.ones(B_MAIN), a0], 1)
         P0 = torch.tensor(p0, dtype=torch.float32, device=dev)
@@ -1974,14 +2049,14 @@ def phase_kernel_bases(dev, smi):
         torch.cuda.synchronize()
         check_parity(f"{basis} one launch K={K} at B={B_MAIN}", state_parity(sk, sr),
                      torch.float32, kv.lanes_per_fit(M))
-        for fn in (kv._launch_kernel, kv._launch_reference):
-            launch_ms(fn, x, Y, state0, tols, 3, basis=basis)  # warm-up
-        ms_k = launch_ms(kv._launch_kernel, x, Y, state0, tols, basis=basis)
-        ms_r = launch_ms(kv._launch_reference, x, Y, state0, tols, basis=basis)
+        ms, _ = interleaved_ms({
+            "kernel": lambda: launch_ms(kv._launch_kernel, x, Y, state0, tols, basis=basis),
+            "plain": lambda: launch_ms(kv._launch_reference, x, Y, state0, tols, basis=basis)})
+        ms_k, ms_r = ms["kernel"], ms["plain"]
         fit_iters = int((sk[:, kv._ITERS] - state0[:, kv._ITERS]).sum().item())
         bound, bound_by = varpro_bound(B_MAIN, M, fit_iters, 4, basis)
         print(f"  one launch K={K}, {kv.lanes_per_fit(M)} lanes per fit: kernel "
-              f"{ms_k:.4f} ms, plain version {ms_r:.4f} ms (median of 20, CUDA events); "
+              f"{ms_k:.4f} ms, plain version {ms_r:.4f} ms ({INTERLEAVED}); "
               f"bound {bound:.4f} ms ({bound_by}; {fit_iters} fit-iterations), kernel at "
               f"{bound / ms_k:.1%} of it [{smi}]")
     return rows
@@ -2001,7 +2076,7 @@ def phase_reference_problems(dev, smi):
     with ctx.Pool(workers, _worker_init, (str(dev),)) as pool:
         jobs = reference_jobs()
         out, secs = run_jobs(pool, jobs, "phases 10a-10c")
-        print(f"== phases 10a-10c: {len(jobs)} solves over {workers} worker processes "
+        header(f"== phases 10a-10c: {len(jobs)} solves over {workers} worker processes "
               f"on {dev} in {secs:.2f} s (job seconds are taken with the other "
               f"workers running) [{smi}]")
         phase_minpack(out, smi)
@@ -2012,7 +2087,7 @@ def phase_reference_problems(dev, smi):
         pool.join()
     phase_bounded_batches(dev, smi)
     phase_kernel_bases(dev, smi)
-    print(f"== phase 10 took {time.perf_counter() - t0:.2f} s")
+    header(f"== phase 10 took {time.perf_counter() - t0:.2f} s")
 
 
 # -- phase 11: the rest of curve fitting ----------------------------------------
@@ -2098,7 +2173,7 @@ def phase_start_free(dev, smi):
               optimizer=lt.LevenbergMarquardt(lt.Cholesky()), min_converged_fraction=FRAC)
     out = {}
     for dtype, conv_min, err_max in ((torch.float32, 0.95, 1e-3), (torch.float64, 0.95, 1e-4)):
-        print(f"== phase 11a: start-free exp_sum_2 (p0='auto', separable, gridded, "
+        header(f"== phase 11a: start-free exp_sum_2 (p0='auto', separable, gridded, "
               f"fused='ssr', LM(Cholesky())), B={B_MAIN}, m=64, {dtype}")
         Y = torch.tensor(Y_np, dtype=dtype, device=dev)
         truth = torch.tensor(bt, dtype=torch.float64, device=dev)
@@ -2117,7 +2192,7 @@ def phase_start_free(dev, smi):
         check(err < err_max, f"11a {dtype}: median max relative error < {err_max:g}")
         out[dtype] = raw
 
-    print(f"== phase 11a: the first {CPU_FITS} fits in float64, on the card and on the CPU")
+    header(f"== phase 11a: the first {CPU_FITS} fits in float64, on the card and on the CPU")
     Y64 = torch.tensor(Y_np[:CPU_FITS], dtype=torch.float64)
     on_card = curve_fit_batch("exp_sum_2", x, Y64.to(dev), "auto", **kw)
     t0 = time.perf_counter()
@@ -2133,7 +2208,7 @@ def phase_start_free(dev, smi):
           "11a: card and CPU agree (minimizers 1e-10, iterations) on >= 99% of the fits")
 
     x2, Y2_np, bt2 = peaks_data(B_MAIN, seed=12)
-    print(f"== phase 11b: start-free gauss_sum_2 (p0='auto', separable, LM(Cholesky())), "
+    header(f"== phase 11b: start-free gauss_sum_2 (p0='auto', separable, LM(Cholesky())), "
           f"B={B_MAIN}, m=128, float32")
     Y2 = torch.tensor(Y2_np, dtype=torch.float32, device=dev)
     truth2 = torch.tensor(bt2, dtype=torch.float64, device=dev)
@@ -2175,7 +2250,7 @@ def phase_robust(dev, smi):
         "linear-loss control (separable, gridded)": lambda: curve_fit_batch(
             "exp_saturation", xdata, Y, P0, separable=True, gridded=True, **common),
     }
-    print(f"== phase 11c: outlier-robust fits, B={B_MAIN}, m={M}, float32, 1% noise and 3 "
+    header(f"== phase 11c: outlier-robust fits, B={B_MAIN}, m={M}, float32, 1% noise and 3 "
           f"outliers of +5-10 b0 per fit, f_scale {ROBUST_F_SCALE}")
     errs = {}
     for label, run in routes.items():
@@ -2241,7 +2316,7 @@ def phase_single_fits(dev, smi, x, Y_np, raw32, raw64):
     workers = min(8, os.cpu_count() or 1)
     jobs = [("varpro", o, name, i) for o in VARPRO_ALLOWED_MISSES
             for name in nist.NIST_SEPARABLE for i in VARPRO_STARTS]
-    print(f"== phase 11d: NIST_SEPARABLE scoreboard, {len(jobs)} float64 runs (3000 "
+    header(f"== phase 11d: NIST_SEPARABLE scoreboard, {len(jobs)} float64 runs (3000 "
           f"iterations, x_tol 1e-50) over {workers} workers on {dev}")
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
@@ -2271,7 +2346,7 @@ def phase_single_fits(dev, smi, x, Y_np, raw32, raw64):
     yl = torch.tensor(d["y"], dtype=torch.float64, device=dev)
     r = lt.curve_fit(exp_sum_separable(3), xl, yl, "auto", separable=True)
     err = float(np.abs(r.minimizer - sol).max())
-    print(f"== phase 11d: start-free Lanczos3: converged {r.converged}, iterations "
+    header(f"== phase 11d: start-free Lanczos3: converged {r.converged}, iterations "
           f"{r.iterations}, max |x - certified| {err:.3e}")
     check(r.converged and err <= 1e-3, "11d: start-free Lanczos3 within 1e-3 of the certified solution")
 
@@ -2285,7 +2360,7 @@ def phase_single_fits(dev, smi, x, Y_np, raw32, raw64):
     J = r.jacobian.astype(np.float64)
     ref = r.ssr / (J.shape[0] - J.shape[1]) * np.linalg.inv(J.T @ J)
     cov_err = float(np.abs(cov - ref).max() / np.abs(ref).max())
-    print(f"== phase 11d: weighted curve_fit('Misra1b'): converged {r.converged}, minimizer "
+    header(f"== phase 11d: weighted curve_fit('Misra1b'): converged {r.converged}, minimizer "
           f"{r.minimizer.tolist()}, covariance against numpy float64 from the same J: max "
           f"relative difference {cov_err:.3e}")
     check(r.converged and cov_err <= 1e-10, "11d: weighted NIST fit converged, covariance within 1e-10")
@@ -2301,7 +2376,7 @@ def phase_single_fits(dev, smi, x, Y_np, raw32, raw64):
     rp = lt.polish(f64, raw32["minimizer"][i])
     target = raw64["minimizer"][i].double().cpu().numpy()
     d_pol = float(np.max(np.abs(rp.minimizer - target) / np.abs(target)))
-    print(f"== phase 11d: polish of 11a's float32 fit {i} to float64: converged {rp.converged}, "
+    header(f"== phase 11d: polish of 11a's float32 fit {i} to float64: converged {rp.converged}, "
           f"iterations {rp.iterations}, max relative difference from the float64 fit {d_pol:.3e}")
     check(rp.converged and d_pol <= 1e-10, "11d: polished fit within 1e-10 of the float64 fit")
 
@@ -2312,7 +2387,7 @@ def phase_curve_fitting(dev, smi):
     x, Y_np, raw32, raw64 = phase_start_free(dev, smi)
     phase_robust(dev, smi)
     phase_single_fits(dev, smi, x, Y_np, raw32, raw64)
-    print(f"== phase 11 took {time.perf_counter() - t0:.2f} s")
+    header(f"== phase 11 took {time.perf_counter() - t0:.2f} s")
 
 
 # -- phase 12: the structured-Jacobian path ----------------------------------
@@ -2360,7 +2435,7 @@ def block_solve(route, D, L, rhs):
 
 def phase_block_solves(dev, smi):
     """12a: the three block solves alone."""
-    print("== phase 12a: block-tridiagonal solves on random SPD systems")
+    header("== phase 12a: block-tridiagonal solves on random SPD systems")
     for nb, s, route in BLOCK_ROUTES:
         D_np, L_np, r_np = block_system(nb, s, seed=nb + s)
         for dt in (torch.float64, torch.float32):
@@ -2431,7 +2506,7 @@ def phase_config4_block_cholesky(dev, smi):
 
     problem, _ = config4_problem(10, dev, True)
     x0 = oscillatory_start(problem, dev)
-    print(f"== phase 12b: config #4, m={problem.m}, n={problem.n}, float32, closed-form "
+    header(f"== phase 12b: config #4, m={problem.m}, n={problem.n}, float32, closed-form "
           "colnorms_fn, to convergence from phase 9c's start")
     raw_bc, _ = converge(problem, LevenbergMarquardt(BlockCholesky(2)), x0,
                          "12b LM(BlockCholesky(2))", smi)
@@ -2442,7 +2517,7 @@ def phase_config4_block_cholesky(dev, smi):
     check(diff <= 1e-3, "12b: BlockCholesky's and LSMR's minimizers agree within 1e-3")
 
     problem10, _ = config4_problem(100, dev, True)
-    print(f"== phase 12c: m={problem10.m}, n={problem10.n}, float32, LM(BlockCholesky(2)) "
+    header(f"== phase 12c: m={problem10.m}, n={problem10.n}, float32, LM(BlockCholesky(2)) "
           "to convergence from the oscillatory start")
     _, peak = converge(problem10, LevenbergMarquardt(BlockCholesky(2)),
                        oscillatory_start(problem10, dev), "12c LM(BlockCholesky(2))",
@@ -2472,7 +2547,7 @@ def phase_config4_sparse(dev, smi, x_bc):
     blocks, n = 10, CONFIG4_N
     residual_fn, _, x0 = banded_problem(blocks, n, torch.float32, dev)
     m = blocks * n
-    print(f"== phase 12d: config #4 with a sparse J (colored AD), m={m}, n={n}, float32")
+    header(f"== phase 12d: config #4 with a sparse J (colored AD), m={m}, n={n}, float32")
     t0 = time.perf_counter()
     pattern = banded_pattern(blocks, n)
     t1 = time.perf_counter()
@@ -2525,7 +2600,7 @@ def phase_batched_block_cholesky(dev, smi):
     from leastsquaresoptim_jl_torch.models.minpack import broyden_tridiagonal
 
     B, n = BATCH_BC, N_BC
-    print(f"== phase 12e: solve_batch, B={B} broyden_tridiagonal({n}) fits, matrix-free, "
+    header(f"== phase 12e: solve_batch, B={B} broyden_tridiagonal({n}) fits, matrix-free, "
           "LM(BlockCholesky(2)), float32")
     scale = np.linspace(0.8, 1.2, B)[:, None]
 
@@ -2574,7 +2649,7 @@ def phase_structured(dev, smi):
           f"{kv.launches}, gram {gram.launches}")
     check(kv.launches == 0 and gram.launches == 0,
           "phase 12 launches neither hand-written kernel (none lies on it)")
-    print(f"== phase 12 took {time.perf_counter() - t0:.2f} s")
+    header(f"== phase 12 took {time.perf_counter() - t0:.2f} s")
 
 
 
@@ -2621,7 +2696,7 @@ def phase_batched_geodesic(dev, smi):
     for geo in (False, True):
         opt = lt.LevenbergMarquardt(lt.Cholesky(), geodesic=geo)
         label = f"13a exp_sum_2 LM(Cholesky(), geodesic={geo})"
-        print(f"== phase {label}, B={GEO_B}, m={GEO_M}, float32, {GEO_ITERATIONS} "
+        header(f"== phase {label}, B={GEO_B}, m={GEO_M}, float32, {GEO_ITERATIONS} "
               "iterations, stop at 99% done")
 
         def run(device=dev, dtype=torch.float32, count=GEO_B, opt=opt):
@@ -2662,7 +2737,7 @@ def phase_batched_lsmr(dev, smi):
 
     x, Y, P0, truth, opts = saturation_residual_problem(dev)
     label = "13b LM(LSMR()) matrix-free exp_saturation"
-    print(f"== phase {label}, B={B_MAIN}, m={M}, float32, stop at 99% done")
+    header(f"== phase {label}, B={B_MAIN}, m={M}, float32, stop at 99% done")
 
     def run():
         return lt.solve_batch(exp_saturation_residual, P0, (x, Y),
@@ -2690,7 +2765,7 @@ def phase_batched_lsmr(dev, smi):
                               materialize_jacobian=False)
 
     label = f"13b LM(LSMR()) matrix-free broyden_tridiagonal({n})"
-    print(f"== phase {label}, B={B}, float32 (hashed Hutchinson column norms)")
+    header(f"== phase {label}, B={B}, float32 (hashed Hutchinson column norms)")
     raw_bt = run_route(label, lambda: broyden(lt.LevenbergMarquardt(lt.LSMR())), smi, B)
     its = raw_bt["iterations"].double()
     inner = ((raw_bt["mul_calls"].double() - 2.0 * its) / 2.0).sum().item() / its.sum().item()
@@ -2715,7 +2790,7 @@ def phase_batched_autodiff(dev, smi):
     x, Y, P0, truth, opts = saturation_residual_problem(dev)
     for autodiff in ("forward", "reverse", "central"):
         label = f"13c solve_batch LM(Cholesky()) autodiff={autodiff!r}"
-        print(f"== phase {label}, B={B_MAIN}, m={M}, float32, stop at 99% done")
+        header(f"== phase {label}, B={B_MAIN}, m={M}, float32, stop at 99% done")
 
         def run(autodiff=autodiff):
             return lt.solve_batch(exp_saturation_residual, P0, (x, Y),
@@ -2753,7 +2828,7 @@ def phase_structured_entry(dev, smi, minimizer):
     diff = float(np.max(np.abs(got - flat.minimizer) / np.abs(flat.minimizer)))
     same = all(getattr(tree, k) == getattr(flat, k)
                for k in ("iterations", "f_calls", "g_calls", "mul_calls", "converged"))
-    print(f"== phase 13d: Misra1a from start 1 with {{'b1', 'b2'}} parameters against the flat "
+    header(f"== phase 13d: Misra1a from start 1 with {{'b1', 'b2'}} parameters against the flat "
           f"vector: minimizer max rel diff {diff:.3e}, counters equal {same}, iterations "
           f"{tree.iterations}, converged {tree.converged}")
     check(diff <= 1e-12 and same, "13d: the dict fit equals the flat fit (1e-12, counters)")
@@ -2814,7 +2889,7 @@ def phase_batched_breadth(dev, smi):
           f"gram {gram.launches}")
     check(kv.launches == 0 and gram.launches == 0,
           "phase 13 launches neither hand-written kernel (none lies on it)")
-    print(f"== phase 13 took {time.perf_counter() - t0:.2f} s")
+    header(f"== phase 13 took {time.perf_counter() - t0:.2f} s")
 
 
 # -- phase 14: low precision ------------------------------------------------
@@ -2872,7 +2947,7 @@ def phase_lowprec_single(dev, smi):
                                        ("Dogleg", lt.Dogleg, lt.LSMR)):
                 grid.append((f"broyden({n}) {dname} {oname}({solver.__name__}())",
                              opt(solver()), lambda d, n=n, dt=dt: lowprec_broyden(n, dt, d)))
-    print(f"== phase 14a: {len(grid)} low-precision single fits on the card against the CPU")
+    header(f"== phase 14a: {len(grid)} low-precision single fits on the card against the CPU")
     t0 = time.perf_counter()
     for label, opt, problem in grid:
         rd = lt.optimize(*problem(dev), opt)
@@ -2911,7 +2986,7 @@ def phase_lowprec_batch(dev, smi):
 
     xdata, Y_np, P0_np, bt = lowprec_data(B_MAIN)
     truth = torch.tensor(bt, dtype=torch.float64, device=dev)
-    print(f"== phase 14b: curve-fit batch in low precision (B={B_MAIN}, m={M}, O(1) data; "
+    header(f"== phase 14b: curve-fit batch in low precision (B={B_MAIN}, m={M}, O(1) data; "
           f"bfloat16 limit: the JAX package's share {BF16_JAX_SHARE} less 0.01)")
     f16_launches = None
     for dname, dt in LOWPREC_DTYPES.items():
@@ -2961,17 +3036,18 @@ def phase_lowprec_batch(dev, smi):
 
 def phase_lowprec_launch(dev, smi):
     """14c: one K = 8 launch of the float16 kernel against the float32 one
-    on 14b's data, and against its plain version; returns the float16
-    entry of the kernels line (launches filled in by the caller)."""
+    on 14b's data, and against its plain version, timed by
+    ``interleaved_ms`` in the order float32, float16, float16 plain version
+    and back; returns the float16 entry of the kernels line (launches
+    filled in by the caller)."""
     from leastsquaresoptim_jl_torch.interop import kernel_state
     from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
 
     xdata, Y_np, P0_np, _ = lowprec_data(B_MAIN)
     tols = f16_tols()
-    print(f"== phase 14c: one K={K} launch, float16 against float32 (B={B_MAIN}, m={M}, "
+    header(f"== phase 14c: one K={K} launch, float16 against float32 (B={B_MAIN}, m={M}, "
           f"{kv.lanes_per_fit(M)} lanes; both at float16's tolerances {tols})")
-    ms = {}
-    entry = None
+    runs = {}
     for dt, np_dt in ((torch.float32, np.float32), (torch.float16, np.float16)):
         x = torch.tensor(xdata, device=dev).to(dt)
         Y = torch.tensor(Y_np, device=dev).to(dt)
@@ -2979,32 +3055,55 @@ def phase_lowprec_launch(dev, smi):
         sk, sr = one_launch("exp_saturation", x, Y, state0, tols)
         if dt == torch.float16:
             check_parity_f16("14c float16 launch against its plain version", sk, sr)
-        launch_ms(kv._launch_kernel, x, Y, state0, tols, 3)  # warm-up
-        ms[dt] = launch_ms(kv._launch_kernel, x, Y, state0, tols)
+        runs[dt] = (x, Y, state0, sk, sr)
+    timers = {dt: lambda dt=dt: launch_ms(kv._launch_kernel, *runs[dt][:3], tols)
+              for dt in runs}
+    timers["plain"] = lambda: launch_ms(kv._launch_reference, *runs[torch.float16][:3], tols)
+    ms, reads = interleaved_ms(timers)
+    entry = None
+    for dt, (x, Y, state0, sk, sr) in runs.items():
         size = Y.element_size()
         fit_iters = int((sk[:, kv._ITERS] - state0[:, kv._ITERS]).float().sum().item())
-        bound, bound_by = varpro_bound(B_MAIN, M, fit_iters, size)
-        print(f"  {dt}: {ms[dt]:.4f} ms (median of 20, CUDA events), {fit_iters} "
-              f"fit-iterations; bound {bound:.4f} ms ({bound_by}; {size}-byte x, Y and "
-              f"state, operations at the type's peak outside the tensor cores), share "
-              f"{bound / ms[dt]:.1%} [{smi}]")
+        t_bytes, t_ops = varpro_terms(B_MAIN, M, fit_iters, size)
+        bound, bound_by = bound_of(t_bytes, t_ops)
+        print(f"  {dt}: {ms[dt]:.4f} ms (medians {reads[dt][0]:.4f} and {reads[dt][1]:.4f}; "
+              f"{INTERLEAVED}), {fit_iters} fit-iterations; bound {bound:.4f} ms ({bound_by}; "
+              f"{size}-byte x, Y and state, operations at the type's peak outside the tensor "
+              f"cores), share {bound / ms[dt]:.1%} [{smi}]")
         if dt == torch.float16:
-            # The instance computes each half operation in float and rounds
-            # it, so the float32 rate is the one this implementation is
-            # held to; the bound above is the card's.
-            b32, by32 = varpro_bound(B_MAIN, M, fit_iters, size, peak="fp32")
-            print(f"  float16 at the float32 rate this implementation issues: bound "
-                  f"{b32:.4f} ms ({by32}), share {b32 / ms[dt]:.1%}")
-        if dt == torch.float16:
-            launch_ms(kv._launch_reference, x, Y, state0, tols, 3)
-            plain = launch_ms(kv._launch_reference, x, Y, state0, tols)
+            print(f"  float16 at the card's float16 rate (133.8 TFLOP/s outside the tensor "
+                  f"cores, an FMA as two operations): bytes {t_bytes:.4f} ms, operations "
+                  f"{t_ops:.4f} ms, binding term {bound_by}; share {bound / ms[dt]:.1%}. "
+                  f"Without contraction (each add and multiply one instruction, as the "
+                  f"bit-for-bit gate needs) the operations take {2 * t_ops:.4f} ms, share "
+                  f"{max(t_bytes, 2 * t_ops) / ms[dt]:.1%}")
             cols = [kv._ALPHA, kv._C]
             entry = dict(max_abs_err=(sk[:, cols].float() - sr[:, cols].float()).abs().max().item(),
-                         ms=ms[dt], plain_ms=plain, bound_ms=bound, bound_by=bound_by,
+                         ms=ms[dt], plain_ms=ms["plain"], bound_ms=bound, bound_by=bound_by,
                          library_ms=None)
-            print(f"  float16 plain version {plain:.4f} ms; float16 / float32 kernel time "
-                  f"{ms[torch.float16] / ms[torch.float32]:.3f}")
+            print(f"  float16 plain version {ms['plain']:.4f} ms; float16 / float32 kernel "
+                  f"time {ms[torch.float16] / ms[torch.float32]:.3f}")
+    f16_ptxas(kv.lanes_per_fit(M), M)
     return entry
+
+
+def f16_ptxas(lanes, m):
+    """Print ptxas's registers and spills of the float16 instance a launch
+    at ``lanes`` and m samples runs, and of every float16 instance."""
+    from leastsquaresoptim_jl_torch import _build
+
+    ptxas = ptxas_report(_build.build_log)
+    S, rep_ = varpro_instance(ptxas, torch.float16, "exp_saturation", lanes, m)
+    regs = ("not found" if rep_ is None else
+            f"{rep_[0]} registers, spill stores {rep_[1]} B, loads {rep_[2]} B")
+    print(f"  ptxas, float16 exp_saturation G={lanes} S={S}: {regs}")
+    f16 = {k: v for k, v in ptxas.items() if "varpro_lm_p1_f16_kernel" in k}
+    spilling = sorted(k for k, v in f16.items() if v[1] or v[2])
+    regs = [v[0] for v in f16.values()] or ["none"]
+    print(f"  ptxas, float16: {len(f16)} instances, registers {min(regs)}-{max(regs)}, "
+          f"{len(spilling)} with spills {spilling}")
+    check(not any(re.search(r"ELi(1|2|4|8|16)ENS_", k) for k in spilling),
+          "no float16 instance with runs of S <= 16 spills")
 
 
 def phase_mgs_timing(dev, smi):
@@ -3013,7 +3112,7 @@ def phase_mgs_timing(dev, smi):
     each after one warm-up."""
     from leastsquaresoptim_jl_torch.ops import linalg
 
-    print("== phase 14d: float32 MGS against Householder QR (measurement only)")
+    header("== phase 14d: float32 MGS against Householder QR (measurement only)")
     gen = torch.Generator(device=dev).manual_seed(0)
     for B, m, n in MGS_SHAPES:
         A = torch.randn(B, m, n, generator=gen, device=dev)
@@ -3045,7 +3144,7 @@ def phase_lowprec(dev, smi):
     launches = phase_lowprec_batch(dev, smi)
     entry = phase_lowprec_launch(dev, smi)
     phase_mgs_timing(dev, smi)
-    print(f"== phase 14 took {time.perf_counter() - t0:.2f} s")
+    header(f"== phase 14 took {time.perf_counter() - t0:.2f} s")
     return {"launches": launches, **entry}
 
 
@@ -3108,7 +3207,7 @@ def phase_synthesize(dev, smi):
     from leastsquaresoptim_jl_torch.problem import synthesize_jacobian
 
     cpu = torch.device("cpu")
-    print("== phase 15a: synthesize_jacobian on config #3's residual (8192, 1024) at x0")
+    header("== phase 15a: synthesize_jacobian on config #3's residual (8192, 1024) at x0")
     for dt in (torch.float64, torch.float32):
         p_dev, p_cpu = config3_problem(dev, dt)[0], config3_problem(cpu, dt)[0]
         exact = synthesize_jacobian(p_cpu.residual_fn, "forward")(p_cpu.x0).double()
@@ -3147,7 +3246,7 @@ def phase_examples(dev, smi):
     kv.launches = gram.launches = 0
     with ctx.Pool(1) as pool:
         cpu_job = pool.apply_async(examples_on_the_cpu)
-        print("== phase 15: dryrun_multichip(1), one NCCL rank, beside the CPU worker")
+        header("== phase 15: dryrun_multichip(1), one NCCL rank, beside the CPU worker")
         t1 = time.perf_counter()
         dryrun_multichip(1, device=dev.type)
         print(f"  dryrun_multichip(1) on one rank in {time.perf_counter() - t1:.2f} s")
@@ -3157,11 +3256,11 @@ def phase_examples(dev, smi):
     # The card's runs are timed once the worker has ended: their times are
     # bound by host dispatch, which the worker's threads would slow.
     phase_synthesize(dev, smi)
-    print("== phase 15b: examples/torch_curve_fitting.py main() on the card")
+    header("== phase 15b: examples/torch_curve_fitting.py main() on the card")
     t1 = time.perf_counter()
     tour = load_example("torch_curve_fitting").main(str(dev))
     t_tour = time.perf_counter() - t1
-    print("== phase 15c: examples/torch_distributed_solve.py main() on the card, one process")
+    header("== phase 15c: examples/torch_distributed_solve.py main() on the card, one process")
     t1 = time.perf_counter()
     raw = load_example("torch_distributed_solve").main(str(dev))
     t_dist = time.perf_counter() - t1
@@ -3189,7 +3288,7 @@ def phase_examples(dev, smi):
           f"{x.tolist()} (CPU {x_cpu.tolist()}), max rel diff {d:.3e} [{smi}]")
     check(bool(raw["converged"]) and conv_cpu, "15c converged on the card and on the CPU")
     check(d <= DISTRIBUTED_RTOL, f"15c minimizer within {DISTRIBUTED_RTOL:g} of the CPU's")
-    print(f"== phase 15 took {time.perf_counter() - t0:.2f} s")
+    header(f"== phase 15 took {time.perf_counter() - t0:.2f} s")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 // The fused VarPro LM kernel's float32 and float64 C entry points and its
 // exp_saturation instances. The kernel, its design and its contract are in
 // kernel_varpro.cuh; kernel_varpro_power.cu and
-// kernel_varpro_michaelis_menten.cu hold the other bases' instances,
-// kernel_varpro_f16.cu the float16 ones and their entry point.
+// kernel_varpro_michaelis_menten.cu hold the other bases' instances;
+// the float16 kernel is kernel_varpro_f16.cuh (kernel_varpro_f16*.cu).
 
 #include "kernel_varpro.cuh"
 

@@ -61,17 +61,16 @@
 // each basis are compiled in their own source file (kernel_varpro*.cu),
 // so that the build runs them in parallel.
 //
-// float16 (Half below; the JAX kernel runs in Y's dtype, float16 too):
-// x, Y and the state are stored as __half, and every + - * / and sqrt is
-// computed in float and rounded once to half, as torch's eager half
-// arithmetic does (float's 24 bits are at least 2 x 11 + 2, so that is
-// the correctly rounded half operation); exp and log run in float
-// (expf, logf, as torch's half kernels) and then round. Its instances are
-// the 11 (G, S) pairs lanes_per_fit reaches (not the sweep's layouts),
-// all three bases in kernel_varpro_f16.cu, built beside the others.
+// float16 runs another kernel, in kernel_varpro_f16.cuh: the same
+// iteration in packed half arithmetic, two fits to a __half2 (+ - * the
+// native f16x2 instructions; /, sqrt, exp and log in float, rounded once
+// to the correctly rounded half result), so it too matches the plain
+// version bit for bit. It takes the state columns, the limits and the
+// basis codes from this header.
 //
-// LSO_VARPRO_PROBE (a build-time define, 0 by default) builds a variant
-// for measurement: 1 masks every run, as if no run were whole.
+// LSO_VARPRO_PROBE (a build-time define, 0 by default) builds a float32
+// and float64 variant for measurement: 1 masks every run, as if no run
+// were whole.
 //
 // The state (B, 8) is updated IN PLACE: each group reads and writes only
 // its own fit's row. The constants (tolerances, max_iters,
@@ -94,29 +93,6 @@ namespace lso_varpro {
 enum { kAlpha = 0, kDelta, kDec, kC, kIters, kDone, kConv, kFlags, kNS };
 enum { kMaxM = 1024 };                  // samples per fit
 enum { kMaxThreads = 256 };             // per block
-
-// float16 with torch's eager arithmetic (see the header): each operation
-// in float, rounded once to half. Every conversion is explicit, so that no
-// float32 or float64 value can pass through a Half by accident.
-struct Half {
-  __half h;
-  Half() = default;
-  __host__ __device__ explicit Half(float v) : h(__float2half_rn(v)) {}
-  __host__ __device__ explicit Half(double v) : h(__double2half(v)) {}
-  __device__ explicit Half(int v) : h(__float2half_rn(static_cast<float>(v))) {}
-  __device__ explicit Half(bool v) : h(__float2half_rn(v ? 1.0f : 0.0f)) {}
-  __device__ float f() const { return __half2float(h); }
-};
-__device__ __forceinline__ Half operator+(Half a, Half b) { return Half(a.f() + b.f()); }
-__device__ __forceinline__ Half operator-(Half a, Half b) { return Half(a.f() - b.f()); }
-__device__ __forceinline__ Half operator*(Half a, Half b) { return Half(a.f() * b.f()); }
-__device__ __forceinline__ Half operator/(Half a, Half b) { return Half(a.f() / b.f()); }
-__device__ __forceinline__ Half operator-(Half a) { return Half(-a.f()); }
-__device__ __forceinline__ bool operator>(Half a, Half b) { return a.f() > b.f(); }
-__device__ __forceinline__ bool operator<(Half a, Half b) { return a.f() < b.f(); }
-__device__ __forceinline__ bool operator>=(Half a, Half b) { return a.f() >= b.f(); }
-__device__ __forceinline__ bool operator<=(Half a, Half b) { return a.f() <= b.f(); }
-__device__ __forceinline__ bool operator!=(Half a, Half b) { return a.f() != b.f(); }
 
 template <typename T> struct Num;
 template <> struct Num<float> {
@@ -151,33 +127,6 @@ template <> struct Num<double> {
   }
   __device__ static void unpack(double2 v, double* o) { o[0] = v.x; o[1] = v.y; }
 };
-template <> struct Num<Half> {
-  using Vec = uint4;  // 16 bytes, 8 halves
-  static constexpr int kVec = 8;
-  __device__ static Half eps() { return Half(0.0009765625f); }     // 2^-10
-  __device__ static Half tiny() { return Half(6.103515625e-05f); }  // 2^-14
-  __device__ static Half exp_(Half v) { return Half(expf(v.f())); }
-  __device__ static Half log_(Half v) { return Half(logf(v.f())); }
-  __device__ static Half sqrt_(Half v) { return Half(sqrtf(v.f())); }
-  __device__ static Half abs_(Half v) { return Half(fabsf(v.f())); }
-  __device__ static bool finite(Half v) { return isfinite(v.f()); }
-  __device__ static Half shfl_xor(Half v, int o, int w) {
-    Half r;
-    r.h = __shfl_xor_sync(0xffffffffu, v.h, o, w);
-    return r;
-  }
-  __device__ static void unpack(uint4 v, Half* o) {
-    const Half* p = reinterpret_cast<const Half*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] = p[i];
-  }
-};
-
-// The sweep's (G, S) layouts (launch_instance) exist for float32 and
-// float64 only.
-template <typename T> constexpr bool kSweepLayouts = true;
-template <> constexpr bool kSweepLayouts<Half> = false;
-
 // NaN-propagating max/min (jnp.maximum / torch.clamp semantics).
 template <typename T> __device__ __forceinline__ T nan_max(T a, T b) {
   return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
@@ -464,13 +413,11 @@ cudaError_t launch_instance(const Args<T>& a, int G, int S, dim3 grid,
   if (G == 16 && S == 16) return run<T, Basis, 16, 16>(a, grid, block, s);
   if (G == 32 && S == 16) return run<T, Basis, 32, 16>(a, grid, block, s);
   if (G == 32 && S == 32) return run<T, Basis, 32, 32>(a, grid, block, s);
-  if constexpr (kSweepLayouts<T>) {
-    if (G == 1 && S == 64) return run<T, Basis, 1, 64>(a, grid, block, s);
-    if (G == 2 && S == 32) return run<T, Basis, 2, 32>(a, grid, block, s);
-    if (G == 8 && S == 8) return run<T, Basis, 8, 8>(a, grid, block, s);
-    if (G == 16 && S == 4) return run<T, Basis, 16, 4>(a, grid, block, s);
-    if (G == 32 && S == 2) return run<T, Basis, 32, 2>(a, grid, block, s);
-  }
+  if (G == 1 && S == 64) return run<T, Basis, 1, 64>(a, grid, block, s);
+  if (G == 2 && S == 32) return run<T, Basis, 2, 32>(a, grid, block, s);
+  if (G == 8 && S == 8) return run<T, Basis, 8, 8>(a, grid, block, s);
+  if (G == 16 && S == 4) return run<T, Basis, 16, 4>(a, grid, block, s);
+  if (G == 32 && S == 2) return run<T, Basis, 32, 2>(a, grid, block, s);
   return cudaErrorInvalidValue;
 }
 
@@ -516,18 +463,9 @@ int launch(const void* x, const void* Y, void* state, int B, int m,
                                                   Consts<double>, int, int,       \
                                                   cudaStream_t);
 
-// The float16 instances of every basis, in kernel_varpro_f16.cu.
-#define LSO_VARPRO_INSTANCES_F16(EXTERN, BASIS)                                   \
-  EXTERN template int launch_basis<Half, BASIS>(const Half*, const Half*, Half*, \
-                                                int, int, int, Consts<Half>,     \
-                                                int, int, cudaStream_t);
-
 LSO_VARPRO_INSTANCES(extern, ExpSaturation)
 LSO_VARPRO_INSTANCES(extern, Power)
 LSO_VARPRO_INSTANCES(extern, MichaelisMenten)
-LSO_VARPRO_INSTANCES_F16(extern, ExpSaturation)
-LSO_VARPRO_INSTANCES_F16(extern, Power)
-LSO_VARPRO_INSTANCES_F16(extern, MichaelisMenten)
 
 template <typename T>
 int launch(const void* x, const void* Y, void* state, int B, int m,

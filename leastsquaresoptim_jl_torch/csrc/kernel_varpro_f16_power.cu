@@ -1,0 +1,10 @@
+// The float16 fused VarPro LM kernel's instances for the power basis, phi = x^a
+// (kernel_varpro_f16.cuh).
+
+#include "kernel_varpro_f16.cuh"
+
+namespace lso_varpro {
+namespace f16 {
+LSO_VARPRO_F16_INSTANCE(, Power)
+}  // namespace f16
+}  // namespace lso_varpro

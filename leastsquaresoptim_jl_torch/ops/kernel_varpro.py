@@ -21,11 +21,20 @@ radius, decrease factor, coefficient, iterations, done, converged, flags
 
 Dtypes: float32, float64 and float16, as the JAX kernel (which runs in
 Y's dtype). In float16 every elementwise operation of the plain version
-rounds to half, as torch's eager half arithmetic does, and the kernel
-rounds the same way (kernel_varpro.cuh); the constants it compares and
-clamps against are rounded through the dtype as JAX rounds a weak-typed
-Python float (``config.in_dtype``: the radius bounds become 0 and inf).
-bfloat16 is refused: the JAX kernel fails on it.
+rounds to half, as torch's eager half arithmetic does (in float, rounded
+once: the correctly rounded half result). The float16 kernel
+(``csrc/kernel_varpro_f16.cuh``) runs two fits to a ``__half2``: each
+group of G lanes carries a pair of fits, one in each half of every
+register, so a block of ``block_fits`` fits has ceil(block_fits / 2) G
+threads. Its + - * are native packed half instructions without
+contraction, sqrt, exp and log are float's rounded to half, / is a
+float quotient close enough to exact to round to the correctly rounded
+half quotient; each fit's order of operations and of summation is the
+plain version's, so the two agree bit for bit. The
+constants it compares and clamps against are rounded through the dtype
+as JAX rounds a weak-typed Python float (``config.in_dtype``: the radius
+bounds become 0 and inf). bfloat16 is refused: the JAX kernel fails on
+it.
 
 Devices: a CPU tensor runs ``_iteration_reference``, the plain PyTorch
 version; a CUDA tensor launches the kernel or raises — there is no
@@ -153,17 +162,22 @@ def _check_lanes(m, lanes, dtype=torch.float32):
 MAX_BLOCK_THREADS = 256
 
 
-def _check_block_fits(block_fits, lanes):
+def _check_block_fits(block_fits, lanes, dtype=torch.float32):
     """Fits per thread block: ``block_fits``, or the most a block holds. A
-    block holds whole warps, at most 256 threads."""
+    block holds whole warps, at most 256 threads: ``block_fits * lanes``
+    of them, and in float16, which runs two fits on each group of lanes,
+    ``ceil(block_fits / 2) * lanes``."""
+    pairs = dtype == torch.float16
     if block_fits is None:
-        return MAX_BLOCK_THREADS // lanes
-    threads = block_fits * lanes
+        return (2 if pairs else 1) * (MAX_BLOCK_THREADS // lanes)
+    threads = (-(-block_fits // 2) if pairs else block_fits) * lanes
     if block_fits < 1 or threads % 32 or threads > MAX_BLOCK_THREADS:
+        rule = ("ceil(block_fits / 2) * lanes (float16: two fits to each "
+                "group of lanes)" if pairs else "block_fits * lanes")
         raise ValueError(
-            f"block_fits * lanes must be a multiple of 32 up to "
-            f"{MAX_BLOCK_THREADS} (whole warps in one block), got "
-            f"block_fits={block_fits}, lanes={lanes}")
+            f"{rule} must be a multiple of 32 up to {MAX_BLOCK_THREADS} "
+            f"(whole warps in one block), got block_fits={block_fits}, "
+            f"lanes={lanes}")
     return block_fits
 
 
@@ -299,7 +313,7 @@ def _launch_kernel(basis, x, Y, state, k_iters, tols, max_iters,
 
     B, m = Y.shape
     lanes = _check_lanes(m, lanes, Y.dtype)
-    block_fits = _check_block_fits(block_fits, lanes)
+    block_fits = _check_block_fits(block_fits, lanes, Y.dtype)
     for name, t in (("x", x), ("Y", Y), ("state", state)):
         if t.device != Y.device or t.dtype != Y.dtype or not t.is_contiguous():
             raise ValueError(
@@ -344,7 +358,7 @@ def _solve(launch, basis, x_grid, Y, alpha0, *, x_tol, f_tol, g_tol,
     B, m = Y.shape
     dt = Y.dtype
     lanes = _check_lanes(m, lanes, dt)
-    block_fits = _check_block_fits(block_fits, lanes)
+    block_fits = _check_block_fits(block_fits, lanes, dt)
     Y = Y.contiguous()
     radius0 = config.DEFAULT_RADIUS_LM if radius is None else radius
 
@@ -409,8 +423,9 @@ def varpro_lm_p1_kernel_solve(
     or at the iteration cap), at most ceil(iterations / k_iters) launches.
     Each fit takes G = ``lanes_per_fit(m)`` lanes of a warp, which also
     sets the plain version's summation order; ``block_fits`` is the number
-    of fits per CUDA thread block (``block_fits * G`` threads, whole warps,
-    at most 256; default 256 threads) and does not change the result.
+    of fits per CUDA thread block (``block_fits * G`` threads, in float16
+    ``ceil(block_fits / 2) * G``; whole warps, at most 256; default 256
+    threads) and does not change the result.
     Returns a dict: ``alpha``, ``coefficient`` (the optimal linear
     coefficient at the final alpha), ``converged``, ``x/f/g_converged``,
     ``iterations`` and ``done``.

@@ -245,6 +245,72 @@ def test_f16_solve_matches_plain_version_bit_for_bit(cuda_device, basis):
         assert _bitwise_equal(ok_[key], or_[key]), key
 
 
+def _f16_launch_pair(cuda_device, basis, m, B, block_fits=None, done=None):
+    """One K = 8 float16 launch of the kernel and of its plain version from
+    one state (fits ``done`` frozen from the start): (state0, kernel,
+    plain)."""
+    xd, Y, a0 = _problem_f16(B, m, basis)
+    x = torch.tensor(xd, dtype=torch.float16, device=cuda_device)
+    Yc = torch.tensor(Y, device=cuda_device)
+    s0 = torch.tensor(kernel_state(a0, 100.0, np.float16), device=cuda_device)
+    if done is not None:
+        s0[done, tk._DONE] = 1.0
+        s0[done, tk._ITERS] = 3.0
+        s0[done, tk._FLAGS] = 4.0
+    before = tk.launches
+    sk = tk._launch_kernel(basis, x, Yc, s0.clone(), 8, F16_TOLS, 50.0,
+                           block_fits=block_fits)
+    sr = tk._launch_reference(basis, x, Yc, s0.clone(), 8, F16_TOLS, 50.0)
+    torch.cuda.synchronize()
+    assert tk.launches == before + 1
+    return s0, sk, sr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("basis", sorted(BASES))
+@pytest.mark.parametrize("m", [64, 37])
+@pytest.mark.parametrize("B", [1, 4099])
+def test_f16_pair_past_the_batch_bit_for_bit(cuda_device, basis, m, B):
+    """A pair whose second fit lies past B (B = 1: the only pair; B = 4099:
+    the last block's second pair) carries a frozen fit: every real fit
+    bit for bit against the plain version, nothing written past B."""
+    _, sk, sr = _f16_launch_pair(cuda_device, basis, m, B)
+    assert sk.shape == (B, 8) and _bitwise_equal(sk, sr)
+    assert bool((sk[:, tk._ITERS] > 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("basis", sorted(BASES))
+@pytest.mark.parametrize("m", [64, 37])
+def test_f16_done_fit_beside_live_partner_bit_for_bit(cuda_device, basis, m):
+    """Pairs with one fit done from the start and its partner live (the
+    done fit in the low half of some pairs, in the high half of others):
+    every done row unchanged bit for bit, every live fit bit for bit
+    against the plain version."""
+    B = 4099
+    done = torch.zeros(B, dtype=torch.bool)
+    done[1::4] = True   # high half of every other pair
+    done[2::4] = True   # low half of the pairs between
+    s0, sk, sr = _f16_launch_pair(cuda_device, basis, m, B, done=done.to(cuda_device))
+    assert _bitwise_equal(sk, sr)
+    d = done.to(cuda_device)
+    assert torch.equal(sk[d].view(torch.int16), s0[d].view(torch.int16))
+    assert bool((sk[~d, tk._ITERS] > 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("basis", sorted(BASES))
+@pytest.mark.parametrize("m", [64, 37])
+def test_f16_odd_block_fits_bit_for_bit(cuda_device, basis, m):
+    """An odd ``block_fits`` (15 fits: 8 pairs, 32 threads at 4 lanes) puts
+    a frozen fit in the last pair of every block; B = 4099 ends on a
+    ragged block. Bit for bit against the plain version."""
+    assert tk.lanes_per_fit(m) == 4
+    _, sk, sr = _f16_launch_pair(cuda_device, basis, m, 4099, block_fits=15)
+    assert _bitwise_equal(sk, sr)
+    assert bool((sk[:, tk._ITERS] > 0).all())
+
+
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_cannot_take(cuda_device):
     xd, Y, a0 = _problem(np.float32, 8, 1025)
