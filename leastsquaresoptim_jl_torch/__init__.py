@@ -19,12 +19,13 @@ of tensors, or a matrix) in and out; the matrix-free path
 structured-Jacobian path (``BlockCholesky``, block-tridiagonal Grams
 from probe matvecs; sparse Jacobians from ``sparse_jacobian``'s colored
 AD or a user's sparse ``g``); post-fit statistics (``utils.covariance``);
-checkpoint and resume (``utils.checkpoint``); the entry points
+checkpoint and resume (``utils.checkpoint``); spans of its layers
+(``tracing``); the entry points
 (``entry.entry``, ``entry.dryrun_multichip``); and the reference's test
 problems (``models.minpack``, ``models.nist``).
 """
 
-from . import config, models, parallel, utils
+from . import config, models, parallel, tracing, utils
 from .api import optimize, optimize_problem, polish, solve
 from .batch import solve_batch
 from .loss import LOSSES, robustify
@@ -48,7 +49,8 @@ from .result import (
 from .solver.base import LSMR, QR, BlockCholesky, Cholesky
 
 __all__ = [
-    "config", "models", "parallel", "utils", "solve", "optimize", "optimize_problem",
+    "config", "models", "parallel", "tracing", "utils", "solve", "optimize",
+    "optimize_problem",
     "polish", "solve_batch", "curve_fit", "curve_fit_batch", "LOSSES",
     "robustify", "optimize_multistart", "latin_hypercube_starts",
     "best_of_raw", "Dogleg", "LevenbergMarquardt", "Options",

@@ -25,7 +25,6 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -51,7 +50,6 @@ _SIGNATURES = {
 }
 
 _lib = None
-build_seconds = None  # wall time of the build (or load) that produced _lib
 build_log = ""  # nvcc's output of the build (ptxas register/spill report)
 
 
@@ -127,15 +125,13 @@ def _open(lib_path):
 
 def load():
     """Return the loaded kernel library, building it first if needed."""
-    global _lib, build_seconds, build_log
+    global _lib, build_log
     if _lib is not None:
         return _lib
-    t0 = time.perf_counter()
     (lib_path,) = _build([(sorted(SOURCE_DIR.glob("*.cu")), [])])
     log_path = lib_path.with_suffix(".log")
     build_log = log_path.read_text() if log_path.exists() else ""
     _lib = _open(lib_path)
-    build_seconds = time.perf_counter() - t0
     return _lib
 
 

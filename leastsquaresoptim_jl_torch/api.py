@@ -29,7 +29,7 @@ from typing import Callable, Optional
 
 import torch
 
-from . import _pytree, config
+from . import _pytree, config, tracing
 from .optimizer import dogleg as _dogleg
 from .optimizer import levenberg_marquardt as _lm
 from .optimizer.base import AbstractOptimizer, Dogleg, LevenbergMarquardt, resolve
@@ -65,30 +65,37 @@ def solve(
     products instead of J; with another solver it carries J (see the
     optimizer modules). A matrix-free problem takes no fused schedule.
     """
-    optimizer = resolve(optimizer, problem)
-    options = options or Options()
-    start = problem.x0 if x0 is None else torch.as_tensor(
-        x0, dtype=problem.x0.dtype, device=problem.x0.device)
-    lower, upper = validate_bounds(start, lower, upper)
-    fused = False if fused is None else fused
-    if isinstance(optimizer, LevenbergMarquardt):
-        return _lm.optimize_loop(
-            problem, optimizer.solver, options, lower, upper, start, fused,
-            optimizer.geodesic,
-        )
-    if isinstance(optimizer, Dogleg):
-        return _dogleg.optimize_loop(
-            problem, optimizer.solver, options, lower, upper, start, fused
-        )
-    raise TypeError(f"unknown optimizer {optimizer!r}")
+    with tracing.span("lso/solve"):
+        optimizer = resolve(optimizer, problem)
+        options = options or Options()
+        start = problem.x0 if x0 is None else torch.as_tensor(
+            x0, dtype=problem.x0.dtype, device=problem.x0.device)
+        lower, upper = validate_bounds(start, lower, upper)
+        fused = False if fused is None else fused
+        if isinstance(optimizer, LevenbergMarquardt):
+            return _lm.optimize_loop(
+                problem, optimizer.solver, options, lower, upper, start, fused,
+                optimizer.geodesic,
+            )
+        if isinstance(optimizer, Dogleg):
+            return _dogleg.optimize_loop(
+                problem, optimizer.solver, options, lower, upper, start, fused
+            )
+        raise TypeError(f"unknown optimizer {optimizer!r}")
 
 
 def _check_initial_bounds(x0, lower, upper):
     """Reference: levenberg_marquardt.jl:49-51 / dogleg.jl:52-54."""
-    if lower is not None and not bool((x0 >= lower).all()):
-        raise ValueError("Initial guess must be within bounds.")
-    if upper is not None and not bool((x0 <= upper).all()):
-        raise ValueError("Initial guess must be within bounds.")
+    if lower is not None:
+        with tracing.span("lso/host_read", site="batch.bounds"):
+            inside = bool((x0 >= lower).all())
+        if not inside:
+            raise ValueError("Initial guess must be within bounds.")
+    if upper is not None:
+        with tracing.span("lso/host_read", site="batch.bounds"):
+            inside = bool((x0 <= upper).all())
+        if not inside:
+            raise ValueError("Initial guess must be within bounds.")
 
 
 def optimize_problem(

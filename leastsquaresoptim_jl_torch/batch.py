@@ -21,6 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
+from . import tracing
 from ._device import data_device
 from .api import _check_initial_bounds
 from .optimizer.common import Options, validate_bounds
@@ -169,14 +170,17 @@ def _solve_lockstep(
         return torch.where(mask, new_leaf, old)
 
     active = cond_fn(carry)
-    ndone = int((~active).sum())  # device-to-host sync
+    with tracing.span("lso/host_read", site="batch.quorum"):
+        ndone = int((~active).sum())  # device-to-host sync
     while ndone < need:
         # Fits freeze at their own iteration every step; only the quorum
         # check (one sync) is k-granular.
         for _ in range(stop_check_every):
-            # Done fits enter an inner LSMR solve frozen.
-            new = body_fn(carry, live=active)
-            carry = {k: freeze(v, new[k], active) for k, v in carry.items()}
-            active = cond_fn(carry)
-        ndone = int((~active).sum())  # device-to-host sync
+            with tracing.span("lso/batch/iter"):
+                # Done fits enter an inner LSMR solve frozen.
+                new = body_fn(carry, live=active)
+                carry = {k: freeze(v, new[k], active) for k, v in carry.items()}
+                active = cond_fn(carry)
+        with tracing.span("lso/host_read", site="batch.quorum"):
+            ndone = int((~active).sum())  # device-to-host sync
     return finalize(carry)

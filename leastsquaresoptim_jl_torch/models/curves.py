@@ -30,6 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from .._device import data_device
 from ..api import optimize
 from ..batch import solve_batch
@@ -372,7 +373,8 @@ def _uniform_grid(x_user, m):
     own array (numpy, list or tensor) with a slack that scales with the
     dtype the grid was stored in."""
     if isinstance(x_user, torch.Tensor):
-        x_np = x_user.detach().cpu().numpy().astype(np.float64)
+        with tracing.span("lso/host_read", site="curves.grid"):
+            x_np = x_user.detach().cpu().numpy().astype(np.float64)
         eps = (torch.finfo(x_user.dtype).eps if x_user.dtype.is_floating_point
                else np.finfo(np.float64).eps)
     else:
@@ -445,101 +447,102 @@ def curve_fit_batch(
     entries at the linear indices must be infinite, ``split_nl_bounds``);
     the joint route passes them to ``solve_batch`` as they are.
     """
-    sep = _separable_structure(model) if separable else None
-    if sep is not None and gridded and not isinstance(model, str):
-        raise ValueError(
-            "gridded=True with a custom SeparableModel is not supported; "
-            "build the basis with ops.special.make_exp_grid directly"
-        )
-    ydata = torch.as_tensor(ydata, device=data_device(ydata, device))
-    device, dtype = ydata.device, ydata.dtype
-    if isinstance(p0, str):
-        p0 = _auto_p0(model, xdata, ydata, p0)
-    p0 = torch.as_tensor(p0, device=device)
-    if sep is not None and loss != "linear":
-        return _separable_irls_batch(
-            model, xdata, ydata, p0, sep=sep, weights=weights,
-            optimizer=optimizer, options=options, lower=lower, upper=upper,
-            min_converged_fraction=min_converged_fraction, loss=loss,
-            f_scale=f_scale, gridded=gridded,
-            irls_iterations=irls_iterations,
-            stop_check_every=stop_check_every,
-        )
-    gridded_name = model if gridded else None
-    if sep is None:
-        model = _as_model(model)
-    x_user = xdata  # grid validation reads the user's own values
-    xdata = torch.as_tensor(
-        np.asarray(xdata) if not isinstance(xdata, torch.Tensor) else xdata,
-        dtype=dtype, device=device,
-    )
-    m = ydata.shape[-1]
-    if gridded_name is not None:
-        if not isinstance(gridded_name, str):
-            raise ValueError("gridded=True needs a named CURVES model")
-        if xdata.ndim != 1:
-            raise ValueError("gridded=True needs a shared 1-d xdata grid")
-        t0, dt = _uniform_grid(x_user, m)
-        if sep is not None:
-            from .separable import gridded_separable
-
-            sep = gridded_separable(gridded_name, t0, dt, m)
-        else:
-            model = gridded_model(gridded_name, t0, dt, m)
-    # A 1-d xdata (or weights) is shared across the batch: mapped with a
-    # None axis instead of a broadcast (B, m) copy.
-    x_axis = None if xdata.ndim == 1 else 0
-    if weights is None:
-        data = (xdata, ydata)
-        axes = (x_axis, 0)
-    else:
-        weights = torch.as_tensor(weights, dtype=dtype, device=device)
-        w_axis = None if weights.ndim == 1 else 0
-        data = (xdata, ydata, weights)
-        axes = (x_axis, 0, w_axis)
-
-    if sep is not None:
-        from .separable import assemble_minimizer, reduced_residual, split_nl_bounds
-
-        n_full = len(sep.lin) + len(sep.nl)
-        if p0.shape[-1] != n_full:
+    with tracing.span("lso/curve_fit_batch"):
+        sep = _separable_structure(model) if separable else None
+        if sep is not None and gridded and not isinstance(model, str):
             raise ValueError(
-                f"p0 must carry the FULL parameter vector (n={n_full} for "
-                f"this separable model); got n={p0.shape[-1]}"
+                "gridded=True with a custom SeparableModel is not supported; "
+                "build the basis with ops.special.make_exp_grid directly"
             )
-        lower_nl, upper_nl = split_nl_bounds(sep, lower, upper)
-        # Column slices, not a list index (which is copied from the host).
-        alpha0 = torch.cat([p0[..., i:i + 1] for i in sep.nl], dim=-1)
-        weighted = weights is not None
-        raw = solve_batch(
-            reduced_residual(sep, weighted=weighted), alpha0, data,
-            optimizer, options=options, output_length=m,
-            lower=lower_nl, upper=upper_nl,
-            data_axis=axes, min_converged_fraction=min_converged_fraction,
+        ydata = torch.as_tensor(ydata, device=data_device(ydata, device))
+        device, dtype = ydata.device, ydata.dtype
+        if isinstance(p0, str):
+            p0 = _auto_p0(model, xdata, ydata, p0)
+        p0 = torch.as_tensor(p0, device=device)
+        if sep is not None and loss != "linear":
+            return _separable_irls_batch(
+                model, xdata, ydata, p0, sep=sep, weights=weights,
+                optimizer=optimizer, options=options, lower=lower, upper=upper,
+                min_converged_fraction=min_converged_fraction, loss=loss,
+                f_scale=f_scale, gridded=gridded,
+                irls_iterations=irls_iterations,
+                stop_check_every=stop_check_every,
+            )
+        gridded_name = model if gridded else None
+        if sep is None:
+            model = _as_model(model)
+        x_user = xdata  # grid validation reads the user's own values
+        xdata = torch.as_tensor(
+            np.asarray(xdata) if not isinstance(xdata, torch.Tensor) else xdata,
+            dtype=dtype, device=device,
+        )
+        m = ydata.shape[-1]
+        if gridded_name is not None:
+            if not isinstance(gridded_name, str):
+                raise ValueError("gridded=True needs a named CURVES model")
+            if xdata.ndim != 1:
+                raise ValueError("gridded=True needs a shared 1-d xdata grid")
+            t0, dt = _uniform_grid(x_user, m)
+            if sep is not None:
+                from .separable import gridded_separable
+
+                sep = gridded_separable(gridded_name, t0, dt, m)
+            else:
+                model = gridded_model(gridded_name, t0, dt, m)
+        # A 1-d xdata (or weights) is shared across the batch: mapped with a
+        # None axis instead of a broadcast (B, m) copy.
+        x_axis = None if xdata.ndim == 1 else 0
+        if weights is None:
+            data = (xdata, ydata)
+            axes = (x_axis, 0)
+        else:
+            weights = torch.as_tensor(weights, dtype=dtype, device=device)
+            w_axis = None if weights.ndim == 1 else 0
+            data = (xdata, ydata, weights)
+            axes = (x_axis, 0, w_axis)
+
+        if sep is not None:
+            from .separable import assemble_minimizer, reduced_residual, split_nl_bounds
+
+            n_full = len(sep.lin) + len(sep.nl)
+            if p0.shape[-1] != n_full:
+                raise ValueError(
+                    f"p0 must carry the FULL parameter vector (n={n_full} for "
+                    f"this separable model); got n={p0.shape[-1]}"
+                )
+            lower_nl, upper_nl = split_nl_bounds(sep, lower, upper)
+            # Column slices, not a list index (which is copied from the host).
+            alpha0 = torch.cat([p0[..., i:i + 1] for i in sep.nl], dim=-1)
+            weighted = weights is not None
+            raw = solve_batch(
+                reduced_residual(sep, weighted=weighted), alpha0, data,
+                optimizer, options=options, output_length=m,
+                lower=lower_nl, upper=upper_nl,
+                data_axis=axes, min_converged_fraction=min_converged_fraction,
+                fused=fused, stop_check_every=stop_check_every,
+            )
+            rec = assemble_minimizer(sep, weighted=weighted)
+            raw = dict(raw)
+            raw["minimizer"] = torch.func.vmap(rec, in_dims=(0, axes))(
+                raw["minimizer"], data
+            )
+            return raw
+
+        def f(beta, d):
+            if weights is None:
+                xd, yd = d
+                return yd - model(xd, beta)
+            xd, yd, wd = d
+            return wd * (yd - model(xd, beta))
+
+        if loss != "linear":
+            from ..loss import robustify
+
+            f = robustify(f, loss, f_scale)
+        return solve_batch(
+            f, p0, data, optimizer,
+            options=options, output_length=m, lower=lower, upper=upper,
+            data_axis=axes,
+            min_converged_fraction=min_converged_fraction,
             fused=fused, stop_check_every=stop_check_every,
         )
-        rec = assemble_minimizer(sep, weighted=weighted)
-        raw = dict(raw)
-        raw["minimizer"] = torch.func.vmap(rec, in_dims=(0, axes))(
-            raw["minimizer"], data
-        )
-        return raw
-
-    def f(beta, d):
-        if weights is None:
-            xd, yd = d
-            return yd - model(xd, beta)
-        xd, yd, wd = d
-        return wd * (yd - model(xd, beta))
-
-    if loss != "linear":
-        from ..loss import robustify
-
-        f = robustify(f, loss, f_scale)
-    return solve_batch(
-        f, p0, data, optimizer,
-        options=options, output_length=m, lower=lower, upper=upper,
-        data_axis=axes,
-        min_converged_fraction=min_converged_fraction,
-        fused=fused, stop_check_every=stop_check_every,
-    )

@@ -59,7 +59,7 @@ import math
 
 import torch
 
-from .. import config
+from .. import config, tracing
 from .._device import data_device
 
 # State vector columns (per fit).
@@ -378,10 +378,12 @@ def _solve(launch, basis, x_grid, Y, alpha0, *, x_tol, f_tol, g_tol,
     n_launches = 0
     ndone = 0
     while ndone < need and n_launches < max_launches:
-        state = launch(basis, x, Y, state, k_iters, tols, float(iterations),
-                       block_fits, lanes)
+        with tracing.span("lso/kernel_varpro/launch"):
+            state = launch(basis, x, Y, state, k_iters, tols, float(iterations),
+                           block_fits, lanes)
         n_launches += 1
-        ndone = int(state[:, _DONE].to(torch.int32).sum())  # host sync
+        with tracing.span("lso/host_read", site="kernel_varpro.quorum"):
+            ndone = int(state[:, _DONE].to(torch.int32).sum())  # host sync
 
     flags = state[:, _FLAGS].to(torch.int32)
     return dict(
@@ -433,19 +435,20 @@ def varpro_lm_p1_kernel_solve(
     A CUDA ``Y`` launches the kernel (or raises); a CPU ``Y`` runs the
     plain PyTorch version. A tensor ``Y`` keeps its device; numpy or list
     ``Y`` goes to the current CUDA device or to ``device``."""
-    Y = torch.as_tensor(Y, device=data_device(Y, device))
-    if Y.device.type == "cuda":
-        launch = _launch_kernel
-    elif Y.device.type == "cpu":
-        launch = _launch_reference
-    else:
-        raise ValueError(f"no kernel for device {Y.device}")
-    return _solve(
-        launch, basis, x_grid, Y, alpha0, x_tol=x_tol, f_tol=f_tol,
-        g_tol=g_tol, iterations=iterations,
-        min_converged_fraction=min_converged_fraction, k_iters=k_iters,
-        block_fits=block_fits, lanes=None, radius=radius,
-    )
+    with tracing.span("lso/kernel_varpro/solve"):
+        Y = torch.as_tensor(Y, device=data_device(Y, device))
+        if Y.device.type == "cuda":
+            launch = _launch_kernel
+        elif Y.device.type == "cpu":
+            launch = _launch_reference
+        else:
+            raise ValueError(f"no kernel for device {Y.device}")
+        return _solve(
+            launch, basis, x_grid, Y, alpha0, x_tol=x_tol, f_tol=f_tol,
+            g_tol=g_tol, iterations=iterations,
+            min_converged_fraction=min_converged_fraction, k_iters=k_iters,
+            block_fits=block_fits, lanes=None, radius=radius,
+        )
 
 
 def varpro_lm_p1_reference_solve(

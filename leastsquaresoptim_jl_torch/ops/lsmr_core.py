@@ -39,7 +39,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from .. import config
+from .. import config, tracing
 
 
 def _leaves(x):
@@ -251,11 +251,16 @@ def lsmr(
     it, istop = 0, 0
     # normar0 == 0 (b = 0 or A'b = 0): x0 is the answer, zero iterations
     # (reference: lsmr.jl:115).
-    if maxiter > 0 and float(normar0) != 0.0:
+    start = False
+    if maxiter > 0:
+        with tracing.span("lso/host_read", site="lsmr.start"):
+            start = float(normar0) != 0.0
+    if start:
         while istop == 0:
             it += 1
             c, rules = body(c, it)
-            fired = rules.tolist()  # the iteration's device-to-host read
+            with tracing.span("lso/host_read", site="lsmr.rules"):
+                fired = rules.tolist()  # the iteration's device-to-host read
             for rule in range(6):
                 if fired[rule]:
                     istop = rule + 1
@@ -291,7 +296,10 @@ def _batched_loop(c, body, normar0, maxiter, live):
 
     it = 0
     # One device-to-host read per iteration: does any fit still run?
-    while maxiter > 0 and bool(running.any()):
+    while maxiter > 0:
+        with tracing.span("lso/host_read", site="lsmr.running"):
+            if not bool(running.any()):
+                break
         it += 1
         new, rules = body(c, it)
         code = torch.zeros_like(istop)

@@ -35,6 +35,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import tracing
 from .linalg import colsumabs2, row_sum
 from .sparse import colsumabs2_sparse, is_sparse
 
@@ -172,16 +173,19 @@ def _default_colnorms2(jvp_fn, rmatvec, m: int, n: int, dtype, x_lin,
             rmatvec, m, dtype, x_lin, probe_salt, reduce)), None
 
     def colnorms2():
-        return _probe_estimate(0, _HUTCHINSON_PROBES, int(_bits_sum()))
+        with tracing.span("lso/host_read", site="operators.probe"):
+            bits_sum = int(_bits_sum())
+        return _probe_estimate(0, _HUTCHINSON_PROBES, bits_sum)
 
     def colnorms2_update(prev):
         # First fresh linearization (prev is the zeros sentinel): the full
         # probe set. Later ones: 8 fresh probes (salt 1: another stream
         # than the full set's) folded into the carried estimate. The seed
         # and the sentinel test share one device-to-host read.
-        bits_sum, seeded = torch.stack(
-            [_bits_sum(), torch.any(prev > 0).to(torch.int64)]
-        ).tolist()
+        with tracing.span("lso/host_read", site="operators.probe"):
+            bits_sum, seeded = torch.stack(
+                [_bits_sum(), torch.any(prev > 0).to(torch.int64)]
+            ).tolist()
         if not seeded:
             return _probe_estimate(0, _HUTCHINSON_PROBES, bits_sum)
         return (

@@ -33,6 +33,8 @@ import contextvars
 import numpy as np
 import torch
 
+from .. import tracing
+
 __all__ = ["make_exp_grid", "higher_order_derivatives"]
 
 _HIGHER_ORDER = contextvars.ContextVar("exp_grid_higher_order", default=False)
@@ -75,9 +77,11 @@ class _Grid:
     def x(self, like):
         key = (like.dtype, like.device)
         if key not in self._cache:
-            self._cache[key] = torch.as_tensor(
-                self.x_np, dtype=like.dtype, device=like.device
-            )
+            # From pageable host memory: the copy waits for the device.
+            with tracing.span("lso/host_read", site="special.grid"):
+                self._cache[key] = torch.as_tensor(
+                    self.x_np, dtype=like.dtype, device=like.device
+                )
         return self._cache[key]
 
 

@@ -57,7 +57,7 @@ from typing import Optional
 
 import torch
 
-from .. import config
+from .. import config, tracing
 from ..ops import operators
 from ..ops.linalg import (
     clip_step_to_bounds,
@@ -254,11 +254,12 @@ def loop_pieces(
 
         # Damped inner solve (reference :87).
         # (Cholesky is a direct solver: inner_istop stays ISTOP_DIRECT.)
-        if fused_gram:
-            dx = solve_spd_system(G, b, damp)
-            lmiter, inner_istop = 1, ISTOP_DIRECT
-        else:
-            dx, lmiter, inner_istop = solve_damped(op, fcur, damp, live)
+        with tracing.span("lso/lm/inner_solve"):
+            if fused_gram:
+                dx = solve_spd_system(G, b, damp)
+                lmiter, inner_istop = 1, ISTOP_DIRECT
+            else:
+                dx, lmiter, inner_istop = solve_damped(op, fcur, damp, live)
         mul_calls = c["mul_calls"] + lmiter
 
         if geodesic:
@@ -450,7 +451,9 @@ def optimize_loop(
         problem, solver_tag, opts, lower, upper, x0, fused, geodesic
     )
     while True:
-        go, need = torch.stack([cond_fn(carry), carry["need_jacobian"]]).tolist()
+        with tracing.span("lso/host_read", site="lm.loop_test"):
+            go, need = torch.stack([cond_fn(carry), carry["need_jacobian"]]).tolist()
         if not go:
             return finalize(carry)
-        carry = body_fn(carry, not need)
+        with tracing.span("lso/lm/iter"):
+            carry = body_fn(carry, not need)
