@@ -30,6 +30,7 @@ from typing import Callable, Optional
 import torch
 
 from . import _pytree, config, tracing
+from ._device import on_solve_stream
 from .optimizer import dogleg as _dogleg
 from .optimizer import levenberg_marquardt as _lm
 from .optimizer.base import AbstractOptimizer, Dogleg, LevenbergMarquardt, resolve
@@ -64,6 +65,9 @@ def solve(
     package): ``True`` or ``"ssr"`` with Cholesky carries the Gram
     products instead of J; with another solver it carries J (see the
     optimizer modules). A matrix-free problem takes no fused schedule.
+    On a card the loop runs on a stream held for single-fit solves
+    (``_device.on_solve_stream``), so that LSMR can replay its iteration
+    from a CUDA graph.
     """
     with tracing.span("lso/solve"):
         optimizer = resolve(optimizer, problem)
@@ -73,15 +77,19 @@ def solve(
         lower, upper = validate_bounds(start, lower, upper)
         fused = False if fused is None else fused
         if isinstance(optimizer, LevenbergMarquardt):
-            return _lm.optimize_loop(
-                problem, optimizer.solver, options, lower, upper, start, fused,
-                optimizer.geodesic,
-            )
-        if isinstance(optimizer, Dogleg):
-            return _dogleg.optimize_loop(
-                problem, optimizer.solver, options, lower, upper, start, fused
-            )
-        raise TypeError(f"unknown optimizer {optimizer!r}")
+            def run():
+                return _lm.optimize_loop(
+                    problem, optimizer.solver, options, lower, upper, start, fused,
+                    optimizer.geodesic,
+                )
+        elif isinstance(optimizer, Dogleg):
+            def run():
+                return _dogleg.optimize_loop(
+                    problem, optimizer.solver, options, lower, upper, start, fused
+                )
+        else:
+            raise TypeError(f"unknown optimizer {optimizer!r}")
+        return on_solve_stream(start.device, run)
 
 
 def _check_initial_bounds(x0, lower, upper):

@@ -31,6 +31,25 @@ goes through the ``normsq`` hook, so that a row-sharded operator can
 complete it across processes (parallel/sharded.py).
 
 "converged" means istop not in {3, 6, 7} (reference: lsmr.jl:234).
+
+One fit on a card, with products that make no collective (``graph=True``,
+which ``solver/lsmr.py`` passes for an operator that is not row-sharded),
+replays its iteration from a CUDA graph: the first iteration runs
+eagerly, the second is captured once (``body(c, 2)``, the form of every
+later iteration) and replayed, and every later one is one replay. The
+graph reads the carry's own tensors and ends by copying the new carry
+back into them, so it holds no second carry; the rule flags it writes are
+read as before, once per iteration, so ``istop``, ``iterations`` and the
+answer are the eager loop's. Where the capture raises (a product that
+reads back to the host, or whose work was recorded on another stream),
+it is dropped, and the loop goes on eagerly from the carry, which a
+capture leaves unchanged. The graph is released when ``lsmr`` returns: the
+operator it reads is built anew at each linearization point. It is
+captured on the current stream, into the thread's graph pool
+(``_device.graph_pool``); a single-fit solve holds a stream for that
+(``_device.on_solve_stream``). As the JAX package traces its
+``lax.while_loop`` body once, the products' Python runs once a solve, not
+once an iteration.
 """
 
 from __future__ import annotations
@@ -40,6 +59,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from .. import config, tracing
+from .._device import graph_pool
 
 
 def _leaves(x):
@@ -95,6 +115,7 @@ def lsmr(
     lam: float = 0.0,
     normsq: Optional[Callable[[Any], torch.Tensor]] = None,
     live: Optional[torch.Tensor] = None,
+    graph: bool = False,
 ):
     """Solve min ||A x - b||^2 + lam^2 ||x||^2 iteratively.
 
@@ -103,7 +124,9 @@ def lsmr(
     ``normsq(u)`` is the squared norm of a u-space vector (default: the
     local sum of squares over every leaf). With x0 of shape (B, n) every
     vector carries the batch axis in front and the fits stop on their own
-    (see the module); ``live`` applies to a batch only.
+    (see the module); ``live`` applies to a batch only. ``graph`` says
+    that the products and ``normsq`` make no collective, so that one fit
+    on a card may replay its iteration from a CUDA graph (see the module).
 
     Returns ``(x, LSMRStats)``.
     """
@@ -255,10 +278,21 @@ def lsmr(
     if maxiter > 0:
         with tracing.span("lso/host_read", site="lsmr.start"):
             start = float(normar0) != 0.0
+    graphed = None  # (graph, its rule flags) once captured
     if start:
         while istop == 0:
             it += 1
-            c, rules = body(c, it)
+            if it == 2 and graph and dev.type == "cuda":
+                with tracing.span("lso/lsmr/capture", site="graph") as note:
+                    graphed = _capture(body, c, dev)
+                    if graphed is None and note is not None:
+                        note.site = "fallback"
+            if graphed is not None:
+                with tracing.span("lso/lsmr/replay"):
+                    graphed[0].replay()
+                rules = graphed[1]
+            else:
+                c, rules = body(c, it)
             with tracing.span("lso/host_read", site="lsmr.rules"):
                 fired = rules.tolist()  # the iteration's device-to-host read
             for rule in range(6):
@@ -275,6 +309,41 @@ def lsmr(
         normar=c["normar"],
     )
     return c["x"], stats
+
+
+def _capture(body, c, device):
+    """One CUDA graph of ``body(c, 2)`` on the current stream, ending by
+    copying the new carry into ``c``'s tensors: ``(graph, rule flags)``,
+    or None where the capture raised. Copying back in place is safe: after
+    the first iteration every carry entry is a tensor of its own (``body``
+    makes each anew; ``minrbar`` is still ``lsmr``'s own initial scalar).
+
+    A read back to the host inside a product raises under the sync debug
+    mode "error" before it reaches the card, so the capture ends cleanly;
+    one that reached the card would leave the graph pool marked as
+    recording, and every later capture there would fall back."""
+    g = torch.cuda.CUDAGraph()
+    try:
+        g.capture_begin(pool=graph_pool(device))
+    except RuntimeError:  # the default stream takes no capture
+        return None
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    rules = None
+    try:
+        new, rules = body(c, 2)
+        for key, old in c.items():
+            _t_map(lambda o, n: o.copy_(n), old, new[key])
+        del new
+    except RuntimeError:  # a product that cannot be captured
+        rules = None
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            g.capture_end()
+        except RuntimeError:  # the capture was invalidated
+            rules = None
+    return None if rules is None else (g, rules)
 
 
 def _batched_loop(c, body, normar0, maxiter, live):

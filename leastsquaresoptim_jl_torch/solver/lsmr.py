@@ -20,7 +20,10 @@ via ``LSMR(preconditioner=...)`` (reference :143-145, README.md:47).
 
 For a row-sharded operator (``op.reduce`` set) the residual part of a
 range-space vector holds this process's rows, so its squared norm is
-completed across the processes; the damp part is replicated.
+completed across the processes; the damp part is replicated. Its
+products and norms make a collective, so LSMR runs its iteration eagerly
+(``graph=False``); every other operator lets one fit on a card replay the
+iteration from a CUDA graph (ops/lsmr_core.py).
 
 A batch of fits (y of shape (B, m)) runs the batched recurrences of
 ``ops/lsmr_core.py``: the preconditioner, the damping and every stop are
@@ -83,6 +86,7 @@ def solve_gn(
         conlim=config.LSMR_CONLIM if conlim is None else conlim,
         normsq=lambda u: row_sum(u * u, op.reduce),
         live=live,
+        graph=op.reduce is None,
     )
     return p * xt, stats
 
@@ -127,5 +131,6 @@ def solve_damped(
         conlim=config.LSMR_CONLIM if conlim is None else conlim,
         normsq=normsq,
         live=live,
+        graph=op.reduce is None,
     )
     return p * xt, stats

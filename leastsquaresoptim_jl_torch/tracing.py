@@ -10,7 +10,11 @@ The program marks its layers with ``span(name, site=None)``: the whole of
 a front-end call (``lso/curve_fit_batch``, ``lso/solve``,
 ``lso/kernel_varpro/solve``), one lockstep or LM iteration, the damped
 inner solve, a kernel launch, and every device-to-host read
-(``lso/host_read``, its ``site`` naming the place). Outside ``record()``
+(``lso/host_read``, its ``site`` naming the place). One fit's LSMR on a
+card (ops/lsmr_core.py) marks its CUDA graph: ``lso/lsmr/capture``, one
+span a capture attempt, at site ``graph`` where the graph was made and
+``fallback`` where the capture raised and the loop went on eagerly; and
+``lso/lsmr/replay``, one span a replayed iteration. Outside ``record()``
 tracing is off: ``span`` returns one shared no-op context manager and
 does nothing else: no clock read, no allocation, no profiler call.
 

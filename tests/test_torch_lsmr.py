@@ -8,8 +8,12 @@ near zero) and ``istop``, ``iterations`` and
 random and well conditioned, away from any stop test's threshold, so the
 two packages' different summation orders cannot move a stop by one
 iteration. The solutions are also held to dense solves, as
-tests/test_lsmr_core.py holds the JAX package's.
+tests/test_lsmr_core.py holds the JAX package's. The CUDA-graph keyword:
+the solver asks for it unless the operator is row-sharded, and the CPU
+never captures (the card's side: tests/test_torch_lsmr_graph_gpu.py).
 """
+
+import dataclasses
 
 import pytest
 
@@ -19,6 +23,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
+from leastsquaresoptim_jl_torch import tracing
 from leastsquaresoptim_jl_torch.ops import lsmr_core as tcore
 from leastsquaresoptim_jl_torch.ops import operators as toperators
 from leastsquaresoptim_jl_torch.solver import lsmr as tsolver
@@ -215,3 +220,43 @@ def test_batched_right_side_raises():
         dx1, st1 = tsolver.solve_gn(toperators.from_matrix(J[i]), y[i])
         assert (st1.istop, st1.iterations) == (int(st.istop[i]), int(st.iterations[i]))
         np.testing.assert_allclose(dx[i].numpy(), dx1.numpy(), rtol=1e-12)
+
+
+def _operator(kind):
+    """A one-fit operator, a batched one, or one that completes its sums
+    with a ``reduce`` hook as a row-sharded operator does."""
+    A, b = _system(40, 8, seed=12)
+    J, y = torch.tensor(A), torch.tensor(b)
+    if kind == "batch":
+        J, y = torch.stack([J, 2.0 * J]), torch.stack([y, -y])
+    op = toperators.from_matrix(J)
+    if kind == "sharded":
+        op = dataclasses.replace(op, reduce=lambda t: t)
+    return op, y
+
+
+@pytest.mark.parametrize("solve", ["gn", "damped"])
+@pytest.mark.parametrize("kind", ["one_fit", "batch", "sharded"])
+def test_graph_keyword_and_cpu_never_captures(kind, solve, monkeypatch):
+    """The solver passes ``graph=True`` unless the operator is row-sharded,
+    and the CPU takes the eager loop whatever the keyword: no capture span,
+    and the answers of ``graph=False``."""
+    op, y = _operator(kind)
+    run = {"gn": lambda: tsolver.solve_gn(op, y),
+           "damped": lambda: tsolver.solve_damped(op, y, torch.full((8,), 0.3, dtype=F64))}[solve]
+    real, seen = tcore.lsmr, []
+
+    def spy(*args, **kw):
+        seen.append(kw["graph"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tsolver, "lsmr", spy)
+    with tracing.record() as rec:
+        dx, st = run()
+    assert seen == [kind != "sharded"]
+    assert rec.count("lso/lsmr/capture") == rec.count("lso/lsmr/replay") == 0
+    monkeypatch.setattr(tsolver, "lsmr", lambda *a, **kw: real(*a, **{**kw, "graph": False}))
+    dx_e, st_e = run()
+    assert torch.equal(dx, dx_e)
+    assert torch.equal(torch.as_tensor(st.iterations), torch.as_tensor(st_e.iterations))
+    assert torch.equal(torch.as_tensor(st.istop), torch.as_tensor(st_e.istop))

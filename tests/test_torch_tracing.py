@@ -227,3 +227,43 @@ def test_annotations_lie_inside_their_spans():
         assert e.name() == s.name
         assert s.start_ns - slack <= e.start_ns()
         assert e.start_ns() + e.duration_ns() <= s.end_ns + slack
+
+
+def _graphed_reader(monkeypatch):
+    """``read(run)`` of the benchmark's ``lsmr_graphed.bvp``."""
+    import importlib.util
+    from pathlib import Path
+
+    bench = Path(__file__).resolve().parents[1] / "perfbench"
+    monkeypatch.syspath_prepend(str(bench))
+    spec = importlib.util.spec_from_file_location(
+        "lsmr_graphed_bvp", bench / "metrics" / "lsmr_graphed.bvp.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+@pytest.mark.parametrize("case", ["cpu_solve", "graphed", "fallback"])
+def test_lsmr_graph_spans_and_reader(monkeypatch, case):
+    """A solve on the CPU never captures, and ``lsmr_graphed.bvp`` then
+    reads nothing; by hand, it reads 100 x replays over LSMR iterations,
+    0 where every capture fell back."""
+    import types
+
+    if case == "cpu_solve":
+        with tracing.record() as rec:
+            _solve()
+        assert rec.count("lso/lsmr/capture") == rec.count("lso/lsmr/replay") == 0
+        assert rec.count(HOST_READ, "lsmr.rules") > 0
+        want = None
+    else:
+        rec = tracing.Recorder()
+        spans = [("lso/lsmr/capture", "graph" if case == "graphed" else "fallback")]
+        spans += [(HOST_READ, "lsmr.rules")] * 10
+        spans += [("lso/lsmr/replay", None)] * (9 if case == "graphed" else 0)
+        rec.spans = [tracing.Span(name, 0, 1, i, None, i, site)
+                     for i, (name, site) in enumerate(spans)]
+        want = 90.0 if case == "graphed" else 0.0
+    run = types.SimpleNamespace(spans=rec, idle_inside=None,
+                                cell=types.SimpleNamespace(chips=1))
+    assert _graphed_reader(monkeypatch)(run) == want
