@@ -150,22 +150,25 @@ def _start(p0, y):
 
 def _auto_p0(model, xdata, ydata, p0):
     """Resolve ``p0="auto"``: a SeparableModel's own ``guess`` hook where
-    it carries one, else the named-model initializers (models/init.py)."""
+    it carries one, else the named-model initializers (models/init.py).
+    Traced as ``lso/init/guess`` at the model's name."""
     if p0 != "auto":
         raise ValueError(f"p0 must be an array or 'auto'; got {p0!r}")
     from .separable import SeparableModel
 
-    if isinstance(model, SeparableModel):
-        if model.guess is None:
-            raise ValueError(
-                "p0='auto' needs a SeparableModel with a guess "
-                "initializer (exp_sum_separable(k<=3) provides one); "
-                "pass an explicit p0"
-            )
-        return model.guess(xdata, ydata)
-    from .init import guess_p0
+    site = model if isinstance(model, str) else type(model).__name__
+    with tracing.span("lso/init/guess", site=site):
+        if isinstance(model, SeparableModel):
+            if model.guess is None:
+                raise ValueError(
+                    "p0='auto' needs a SeparableModel with a guess "
+                    "initializer (exp_sum_separable(k<=3) provides one); "
+                    "pass an explicit p0"
+                )
+            return model.guess(xdata, ydata)
+        from .init import guess_p0
 
-    return guess_p0(model, xdata, ydata)
+        return guess_p0(model, xdata, ydata)
 
 
 def curve_fit(

@@ -61,6 +61,11 @@ def _solve2(a11, a12, a22, r1, r2):
 
 
 def _pos(v, floor):
+    """``max(v, floor)``. A Python number goes to ``clamp`` as it is: a
+    tensor made of it would be a host-to-device copy, which waits for the
+    card."""
+    if isinstance(floor, (int, float)):
+        return torch.clamp(v, min=floor)
     return torch.maximum(v, torch.as_tensor(floor, dtype=v.dtype, device=v.device))
 
 
@@ -68,7 +73,9 @@ def _clip(v, lo, hi):
     """``min(max(v, lo), hi)`` with tensor or scalar bounds (jnp.clip)."""
     if lo is not None:
         v = _pos(v, lo)
-    if hi is not None:
+    if isinstance(hi, (int, float)):
+        v = torch.clamp(v, max=hi)
+    elif hi is not None:
         v = torch.minimum(v, torch.as_tensor(hi, dtype=v.dtype, device=v.device))
     return v
 
@@ -209,26 +216,37 @@ def _exp_sum_guess(x, y, k):
     rates as the characteristic roots (_char_poly_rates). Amplitudes come
     from one ridged k x k solve on the recovered basis; rates are clamped
     positive, split if degenerate, and ascending (the canonical
-    representative)."""
-    xb = torch.broadcast_to(x, y.shape).to(y.dtype)
+    representative).
+
+    Below float64 the regression (integrals, Gram, solve, roots) runs in
+    float64 and only its rates come back in y's dtype: the Gram's columns
+    differ in scale by the data's magnitude times span^k, and at
+    float32's eps its ridge swamps the polynomial columns (a 256-sample
+    decay frame of 200-2000 counts over 12.5 ns then gets rates at the
+    floor, as the JAX package's float32 start does; ROADMAP Queue 3 item
+    30). float64 data takes the JAX package's arithmetic unchanged."""
+    wide = torch.promote_types(y.dtype, torch.float64)
+    yw = y.to(wide)
+    xw = torch.broadcast_to(x, y.shape).to(wide)
     ints = []
-    acc = y
+    acc = yw
     for _ in range(k):
-        acc = _cumtrapz(acc, xb)
+        acc = _cumtrapz(acc, xw)
         ints.append(acc)
-    cols = tuple(ints) + tuple(xb ** i for i in range(k - 1, -1, -1))
+    cols = tuple(ints) + tuple(xw ** i for i in range(k - 1, -1, -1))
     G = torch.stack(
         [torch.stack([torch.sum(a * b, dim=-1) for b in cols], dim=-1) for a in cols],
         dim=-2,
     )
-    rhs = torch.stack([torch.sum(a * y, dim=-1) for a in cols], dim=-1)
-    eps = torch.finfo(y.dtype).eps
-    tiny = torch.finfo(y.dtype).tiny
+    rhs = torch.stack([torch.sum(a * yw, dim=-1) for a in cols], dim=-1)
+    eps = torch.finfo(wide).eps
+    tiny = torch.finfo(wide).tiny
     tr = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
     ridge = (eps * tr / (2 * k) + tiny)[..., None, None]
-    eye = torch.eye(2 * k, dtype=y.dtype, device=y.device)
+    eye = torch.eye(2 * k, dtype=wide, device=y.device)
     coef = spd_chol_solve(G + ridge * eye, rhs)
-    rates = torch.sort(_char_poly_rates(coef[..., :k], k), dim=-1).values
+    rates = torch.sort(_char_poly_rates(coef[..., :k], k), dim=-1).values.to(y.dtype)
+    xb = torch.broadcast_to(x, y.shape).to(y.dtype)
 
     span = _pos(torch.amax(torch.abs(x)), 1.0)
     dxmin = _pos(torch.amin(torch.abs(torch.diff(x, dim=-1))), 1e-30)

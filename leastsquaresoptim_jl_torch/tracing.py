@@ -8,8 +8,10 @@
 
 The program marks its layers with ``span(name, site=None)``: the whole of
 a front-end call (``lso/curve_fit_batch``, ``lso/solve``,
-``lso/kernel_varpro/solve``), one lockstep or LM iteration, the damped
-inner solve, a kernel launch, and every device-to-host read
+``lso/kernel_varpro/solve``), the start-free initializer of a
+``p0="auto"`` call (``lso/init/guess``, its ``site`` naming the model),
+one lockstep or LM iteration, the damped inner solve, a kernel launch,
+and every device-to-host read
 (``lso/host_read``, its ``site`` naming the place). One fit's LSMR on a
 card (ops/lsmr_core.py) marks its CUDA graph: ``lso/lsmr/capture``, one
 span a capture attempt, at site ``graph`` where the graph was made and

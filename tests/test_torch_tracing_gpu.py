@@ -1,4 +1,4 @@
-"""Every device-to-host read on the benchmark's three paths has its span
+"""Every device-to-host read on the benchmark's four paths has its span
 (marker ``gpu``; skips without a CUDA GPU).
 
 One call of each path runs under ``torch.cuda.set_sync_debug_mode("warn")``
@@ -29,9 +29,11 @@ from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv  # noqa: E402
 
 HOST_READ = "lso/host_read"
 TOLS = dict(x_tol=1e-6, f_tol=1e-6, g_tol=1e-5)
-# (fits, points) of the curve paths and (parameters, blocks) of the
-# banded system: small, and the cells' (sat131k, bvp1m).
-SIZES = {"small": ((4096, 64), (3000, 4)), "cell": ((131072, 64), (100000, 10))}
+# (fits, points) of the curve paths, (parameters, blocks) of the banded
+# system and (pixels, channels) of the start-free path: small, and the
+# cells' (sat131k, bvp1m, flim_biexp).
+SIZES = {"small": ((4096, 64), (3000, 4), (4096, 256)),
+         "cell": ((131072, 64), (100000, 10), (65536, 256))}
 
 
 @pytest.fixture
@@ -57,6 +59,25 @@ def _fit_batch(B, m, device):
     options = lt.Options(iterations=50, radius=100.0, **TOLS)
     return lambda: lt.curve_fit_batch(
         "exp_saturation", x, Y, P0, optimizer=optimizer, options=options,
+        min_converged_fraction=0.99, separable=True, gridded=True, fused="ssr")
+
+
+def _fit_auto(B, m, device):
+    """Start-free two-exponential decays (flim_biexp's ranges) through the
+    initializer and the p = 2 lockstep loop."""
+    g = torch.Generator(device=device).manual_seed(6)
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(B, 1, generator=g, device=device)
+
+    x = torch.arange(m, device=device) * (12.5 / m)
+    peak, fast = u(200.0, 2000.0), u(0.5, 0.85)
+    Y = ((1 - fast) * peak * torch.exp(-x / u(1.5, 3.5))
+         + fast * peak * torch.exp(-x / u(0.3, 0.6)))
+    optimizer = lt.LevenbergMarquardt(lt.Cholesky())
+    options = lt.Options(iterations=50)
+    return lambda: lt.curve_fit_batch(
+        "exp_sum_2", x, Y, "auto", optimizer=optimizer, options=options,
         min_converged_fraction=0.99, separable=True, gridded=True, fused="ssr")
 
 
@@ -126,10 +147,12 @@ def _syncs_and_reads(call):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("size", sorted(SIZES))
-@pytest.mark.parametrize("path", ["curve_fit_batch", "solve_lsmr", "kernel_varpro"])
+@pytest.mark.parametrize("path", ["curve_fit_batch", "solve_lsmr", "kernel_varpro",
+                                  "curve_fit_auto"])
 def test_every_sync_is_a_host_read_span(cuda_device, path, size):
-    curve, banded = SIZES[size]
+    curve, banded, frame = SIZES[size]
     make = {"curve_fit_batch": lambda: _fit_batch(*curve, cuda_device),
+            "curve_fit_auto": lambda: _fit_auto(*frame, cuda_device),
             "kernel_varpro": lambda: _kernel(*curve, cuda_device),
             "solve_lsmr": lambda: _solve(*banded, cuda_device)}[path]
     syncs, rec, launches = _syncs_and_reads(make())
@@ -148,3 +171,4 @@ def test_every_sync_is_a_host_read_span(cuda_device, path, size):
         Counter(s.site for s in reads if per_read[s.id] != 1)
     assert len(syncs) == len(reads)
     assert rec.count("lso/kernel_varpro/launch") == launches
+    assert rec.count("lso/init/guess") == (path == "curve_fit_auto")
