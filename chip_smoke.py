@@ -36,6 +36,16 @@ script started; any failure raises and exits non-zero):
    overflow a float16 sum of squares) at float16's derived tolerances:
    every column of every fit's state, and every result of both solves,
    equal to the plain version's bit for bit.
+2c. The fused p = 2 VarPro evaluation of gridded exponential sums
+   (varpro_exp2_eval, ops/varpro_exp2.py) against its plain version on
+   the card, at the benchmark's FLIM frame (B = 65536, m = 256) and at
+   phase 11a's shape (B = 131072, m = 64): Gram, Jacobian and residual
+   mode, one launch each, every output bit for bit the plain version's
+   (built with -fmad=false), over batches that take every arm (QR, normal
+   equations, dead) and hold non-finite rates; ptxas's 9 instances with
+   no spill; the Gram-mode launch's time at the frame (mean of 20
+   back-to-back launches between CUDA events), the plain version's, and
+   the bound (Y read once at HBM bandwidth).
 3. The plain route: the bench.py workload (B = 131072 exp_saturation fits
    on a shared 64-point grid, float32, numpy default_rng(0), starts
    0.7-1.4x the truth) through curve_fit_batch(separable=True,
@@ -185,9 +195,12 @@ script started; any failure raises and exits non-zero):
    plain version (phase 2's float32 limits) with its time, bound and share
    (phase 5's method).
 
-11. The rest of curve fitting, no kernel of its own (every route resets
-   both kernels' counters and must read 0 launches; times, lockstep
-   iterations, converged share and one profiler pass per route, as 10d):
+11. The rest of curve fitting (every route resets the three kernels'
+   counters; kernel_varpro and the Gram must read 0 launches, and
+   varpro_exp2_eval as many as 11a's float32 batch has lockstep
+   iterations plus 2 (the seed and the final Jacobian) there and 0 on
+   every other route; times, lockstep iterations, converged share and one
+   profiler pass per route, as 10d):
    (a) start-free bi-exponential decays (FLIM-style; ``flim_data``, seed
    11, the truth ranges of tests/test_init.py::test_curve_fit_batch_auto,
    no noise) at B = 131072, m = 64 through curve_fit_batch("exp_sum_2",
@@ -342,8 +355,9 @@ script started; any failure raises and exits non-zero):
 The second-to-last line is a JSON object describing each kernel (times
 from phase 5 for kernel_varpro, at the lanes the rule picks, from phase
 14c for its float16 instance (kernel_varpro_f16, launches from 14b's
-float16 kernel route), and from phase 6 at (2^20, 256) float32 for the
-Gram; bounds from this run's shapes and, for kernel_varpro, the
+float16 kernel route), from phase 6 at (2^20, 256) float32 for the
+Gram, and from phase 2c for varpro_exp2_eval (launches from 11a's
+float32 batch); bounds from this run's shapes and, for kernel_varpro, the
 iterations its fits ran); the last is {"ok": true, "device": {...}}. The
 script needs one CUDA card and imports nothing of JAX.
 """
@@ -457,7 +471,7 @@ def main():
     print(f"kernels and phases 5c and 6b's measurement builds built and loaded in "
           f"{time.perf_counter() - t0:.2f} s ({n_compiles} nvcc started at once)")
     ptxas = ptxas_report(_build.build_log)
-    varpro = {k: v for k, v in ptxas.items() if "varpro" in k}
+    varpro = {k: v for k, v in ptxas.items() if "varpro_lm_p1" in k}
     for name_, (regs, st, ld) in ptxas.items():
         if "varpro" not in name_:
             print(f"  ptxas: {name_}: {regs} registers, spill stores {st} B, loads {ld} B")
@@ -472,6 +486,7 @@ def main():
     # -- phase 2: kernel against its plain version ------------------------
     phase_varpro_parity(dev)
     phase_varpro_parity_f16(dev)
+    exp2_entry = phase_exp2(dev, smi, ptxas)
 
     # -- phases 3 and 4: the main path ------------------------------------
     xdata, Y_np, x0_np, bt = bench_data(B_MAIN, seed=0)
@@ -571,7 +586,7 @@ def main():
     phase_single_fit(dev, smi)
     phase_matrix_free(dev, smi)
     phase_reference_problems(dev, smi)
-    phase_curve_fitting(dev, smi)
+    exp2_entry["launches"] = phase_curve_fitting(dev, smi)
     phase_structured(dev, smi)
     phase_batched_breadth(dev, smi)
     f16_entry = phase_lowprec(dev, smi)
@@ -602,6 +617,12 @@ def main():
         "replaces": "leastsquaresoptim_jl_tpu/ops/gram.py:71",
         "launches": gram_launches,
         **gram_cmp,
+    }, {
+        "name": "varpro_exp2_eval",
+        "route": "cuda",
+        "source": "leastsquaresoptim_jl_torch/csrc/varpro_exp2.cu",
+        "replaces": None,
+        **exp2_entry,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -799,6 +820,88 @@ def phase_varpro_parity_f16(dev):
                 conv = ok_["converged"].double().mean().item()
                 check_parity_f16(f"{what} solve K={k_iters} to {frac:g} done ({n} launches, "
                                  f"converged {conv:.6f})", ok_, or_)
+
+
+# Phase 2c's shapes: (B, m, t0, dt) of the benchmark's FLIM frame
+# (flim_biexp: 65536 pixels x 256 channels over 12.5 ns) and of phase
+# 11a's start-free batch (linspace(0, 6, 64)).
+EXP2_SHAPES = ((65_536, 256, 0.0, 12.5 / 256), (B_MAIN, M, 0.0, 6.0 / 63))
+# Rates of the six hard fits that close each phase 2c batch: near-equal
+# and equal (normal equations), a basis that underflows (dead), NaN and
+# infinite rates.
+EXP2_HARD = [[1.0, 1.0 + 1e-7], [1.0, 1.0], [300.0, 450.0], [np.nan, 1.0],
+             [np.inf, 1.0], [-np.inf, 1.0]]
+
+
+def exp2_data(B, m, t0, dt, dev, seed):
+    """B two-term decays on x_i = t0 + i dt (amplitudes U(100, 1000), rates
+    U(0.25, 0.7) and U(1.6, 3.4)), started 0.7-1.3x their rates; the last
+    six fits take EXP2_HARD's rates. Y and alpha in float32 on ``dev``."""
+    rng = np.random.default_rng(seed)
+    x = t0 + dt * np.arange(m)
+    k = np.stack([rng.uniform(0.25, 0.7, B), rng.uniform(1.6, 3.4, B)], 1)
+    amp = rng.uniform(100.0, 1000.0, (B, 2))
+    Y = amp[:, :1] * np.exp(-k[:, :1] * x) + amp[:, 1:] * np.exp(-k[:, 1:] * x)
+    alpha = k * rng.uniform(0.7, 1.3, (B, 2))
+    alpha[-len(EXP2_HARD):] = EXP2_HARD
+    return (torch.tensor(Y, dtype=torch.float32, device=dev),
+            torch.tensor(alpha, dtype=torch.float32, device=dev))
+
+
+def same_bits(a, b):
+    """Equal bit for bit, a NaN matching any NaN."""
+    same = a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)
+    return a.shape == b.shape and bool((same | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def phase_exp2(dev, smi, ptxas):
+    """Phase 2c: varpro_exp2_eval against its plain version on the card,
+    Gram and Jacobian mode, at EXP2_SHAPES; ptxas's registers and spills;
+    the Gram-mode launch's time, the plain version's, and the bound.
+    Returns the kernel's entry of the kernels line (launches filled in by
+    the caller)."""
+    from leastsquaresoptim_jl_torch.ops import varpro_exp2 as ve
+
+    header("== phase 2c: varpro_exp2_eval vs its plain version on the card, float32")
+    inst = {k: v for k, v in ptxas.items() if "varpro_exp2_eval" in k}
+    for name_, (regs, st, ld) in sorted(inst.items()):
+        print(f"  ptxas: {name_}: {regs} registers, spill stores {st} B, loads {ld} B")
+    check(len(inst) == 9 and not any(v[1] or v[2] for v in inst.values()),
+          "varpro_exp2_eval: 9 instances (NV 1, 2, 4 x 3 modes), none spills")
+    out = None
+    for B, m, t0, dt in EXP2_SHAPES:
+        Y, alpha = exp2_data(B, m, t0, dt, dev, seed=m)
+        ve.launches = 0
+        got = (*ve.evaluate_gram(Y, alpha, t0, dt), *ve.evaluate_jacobian(Y, alpha, t0, dt),
+               ve.evaluate_jacobian(Y, alpha, t0, dt, jacobian=False))
+        torch.cuda.synchronize()
+        n = ve.launches
+        G0, b0, hi0, lo0, arm = ve._gram_plain(Y, alpha, t0, dt)
+        r0, J0, arm_j = ve._jacobian_plain(Y, alpha, t0, dt)
+        want = (G0, b0, hi0, lo0, r0, J0, r0)
+        names = ("J'J", "J'r", "ssr_hi", "ssr_lo", "r", "J", "r (residual mode)")
+        diff = [nm for nm, g, w in zip(names, got, want) if not same_bits(g, w)]
+        arms = {a: int((arm == a).sum()) for a in (ve.DEAD, ve.QR, ve.NORMAL)}
+        print(f"  B={B}, m={m}, layout {ve.layout(m)}: {n} launches; arms (dead, QR, normal) "
+              f"{tuple(arms.values())}; outputs that differ from the plain version's bits: "
+              f"{diff or 'none'}")
+        check(n == 3, f"phase 2c B={B} m={m}: one launch a call")
+        check(not diff and torch.equal(arm, arm_j) and min(arms.values()) > 0,
+              f"phase 2c B={B} m={m}: every arm taken, every output bit for bit the plain version's")
+        if out is None:
+            buf = torch.empty((B, 8), dtype=torch.float32, device=dev)
+            ms = loop_ms(lambda: ve._launch_kernel(Y, alpha, t0, dt, out=buf))
+            plain_ms = loop_ms(lambda: ve._gram_plain(Y, alpha, t0, dt), n=5, warmup=1)
+            bound = B * m * 4 / HBM_BYTES_PER_MS
+            print(f"  Gram mode at B={B}, m={m}: kernel {ms:.4f} ms, plain version "
+                  f"{plain_ms:.4f} ms (mean of back-to-back calls between CUDA events); "
+                  f"bound {bound:.4f} ms (bytes: Y read once), kernel at {bound / ms:.1%} of "
+                  f"it; no single PyTorch call computes it [{smi}]")
+            out = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": "bytes", "library_ms": None}
+        del Y, alpha, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 # GPU cycles (about 10 ms) that launch_ms's launches queue behind. Without
@@ -2145,22 +2248,29 @@ def max_rel(minimizer, truth):
     return torch.nan_to_num(rel(minimizer, truth).amax(dim=1), nan=float("inf"))
 
 
-def run_route(label, run, smi, B):
-    """One route of 11a-11c: reset both kernels' counters, solve, require
-    0 launches, then times and one profiler pass. Returns the result."""
+def run_route(label, run, smi, B, exp2=False):
+    """One route of 11a-11c: reset the kernels' counters, solve, require 0
+    launches of kernel_varpro and the Gram, and of varpro_exp2_eval one a
+    lockstep iteration, one for the seed and one for the final Jacobian
+    where ``exp2`` (else none), then times and one profiler pass. Returns
+    the result and varpro_exp2_eval's launches."""
     from leastsquaresoptim_jl_torch.ops import gram
     from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
+    from leastsquaresoptim_jl_torch.ops import varpro_exp2 as ve
 
-    kv.launches = gram.launches = 0
+    kv.launches = gram.launches = ve.launches = 0
     secs, raw = sync_time(run)
-    launches = (kv.launches, gram.launches)
-    print(f"  {label}: launches (kernel_varpro, gram) {launches}, lockstep iterations "
-          f"{int(raw['iterations'].max())}, converged {raw['converged'].double().mean().item():.6f}, "
+    launches = (kv.launches, gram.launches, ve.launches)
+    its = int(raw['iterations'].max())
+    print(f"  {label}: launches (kernel_varpro, gram, varpro_exp2_eval) {launches}, lockstep "
+          f"iterations {its}, converged {raw['converged'].double().mean().item():.6f}, "
           f"first call {secs:.3f} s")
-    check(launches == (0, 0), f"{label}: no kernel launched")
+    check(launches == (0, 0, its + 2 if exp2 else 0),
+          f"{label}: " + (f"varpro_exp2_eval launched {its} + 2 times, no other kernel"
+                          if exp2 else "no kernel launched"))
     time_batch(run, label, smi, B)
     profile_batch(run, raw, label, smi)
-    return raw
+    return raw, launches[2]
 
 
 def phase_start_free(dev, smi):
@@ -2181,7 +2291,10 @@ def phase_start_free(dev, smi):
         def run(Y=Y):
             return curve_fit_batch("exp_sum_2", x, Y, "auto", **kw)
 
-        raw = run_route(f"exp_sum_2 {dtype}", run, smi, B_MAIN)
+        raw, n = run_route(f"exp_sum_2 {dtype}", run, smi, B_MAIN,
+                           exp2=dtype == torch.float32)
+        if dtype == torch.float32:
+            exp2_launches = n
         conv = raw["converged"]
         share = conv.double().mean().item()
         err = max_rel(raw["minimizer"], truth)[conv].median().item()
@@ -2218,14 +2331,14 @@ def phase_start_free(dev, smi):
                                optimizer=lt.LevenbergMarquardt(lt.Cholesky()),
                                min_converged_fraction=FRAC)
 
-    raw = run_route("gauss_sum_2 float32", run2, smi, B_MAIN)
+    raw, _ = run_route("gauss_sum_2 float32", run2, smi, B_MAIN)
     conv = raw["converged"]
     share = conv.double().mean().item()
     err = max_rel(raw["minimizer"], truth2)[conv].median().item()
     print(f"  converged {share:.6f}, median max relative error over the converged fits {err:.3e}")
     check(share >= 0.95 and err < 1e-3,
           "11b: >= 95% converged, median max relative error < 1e-3")
-    return x, Y_np, out[torch.float32], out[torch.float64]
+    return x, Y_np, out[torch.float32], out[torch.float64], exp2_launches
 
 
 def phase_robust(dev, smi):
@@ -2254,7 +2367,7 @@ def phase_robust(dev, smi):
           f"outliers of +5-10 b0 per fit, f_scale {ROBUST_F_SCALE}")
     errs = {}
     for label, run in routes.items():
-        raw = run_route(label, run, smi, B_MAIN)
+        raw, _ = run_route(label, run, smi, B_MAIN)
         errs[label] = max_rel(raw["minimizer"], truth).median().item()
         rounds = raw.get("irls_rounds")
         bad = int((~torch.isfinite(raw["minimizer"]).all(dim=1)).sum())
@@ -2382,12 +2495,14 @@ def phase_single_fits(dev, smi, x, Y_np, raw32, raw64):
 
 
 def phase_curve_fitting(dev, smi):
-    """Phase 11: start-free batches, robust fits and single fits."""
+    """Phase 11: start-free batches, robust fits and single fits. Returns
+    varpro_exp2_eval's launches in 11a's float32 batch."""
     t0 = time.perf_counter()
-    x, Y_np, raw32, raw64 = phase_start_free(dev, smi)
+    x, Y_np, raw32, raw64, exp2_launches = phase_start_free(dev, smi)
     phase_robust(dev, smi)
     phase_single_fits(dev, smi, x, Y_np, raw32, raw64)
     header(f"== phase 11 took {time.perf_counter() - t0:.2f} s")
+    return exp2_launches
 
 
 # -- phase 12: the structured-Jacobian path ----------------------------------
@@ -2705,7 +2820,7 @@ def phase_batched_geodesic(dev, smi):
                 torch.tensor(p0_np[:count], dtype=dtype, device=device), optimizer=opt,
                 options=opts, min_converged_fraction=FRAC)
 
-        raw = run_route(label, run, smi, GEO_B)
+        raw, _ = run_route(label, run, smi, GEO_B)
         conv = raw["converged"].double().mean().item()
         err = max_rel(raw["minimizer"], truth).median().item()
         finite = bool(torch.isfinite(raw["minimizer"]).all())
@@ -2745,7 +2860,7 @@ def phase_batched_lsmr(dev, smi):
                               output_length=M, materialize_jacobian=False,
                               min_converged_fraction=FRAC, data_axis=(None, 0))
 
-    raw = run_route(label, run, smi, B_MAIN)
+    raw, _ = run_route(label, run, smi, B_MAIN)
     conv = raw["converged"].double().mean().item()
     err = rel(raw["minimizer"], truth).median().item()
     its = raw["iterations"].double()
@@ -2766,7 +2881,7 @@ def phase_batched_lsmr(dev, smi):
 
     label = f"13b LM(LSMR()) matrix-free broyden_tridiagonal({n})"
     header(f"== phase {label}, B={B}, float32 (hashed Hutchinson column norms)")
-    raw_bt = run_route(label, lambda: broyden(lt.LevenbergMarquardt(lt.LSMR())), smi, B)
+    raw_bt, _ = run_route(label, lambda: broyden(lt.LevenbergMarquardt(lt.LSMR())), smi, B)
     its = raw_bt["iterations"].double()
     inner = ((raw_bt["mul_calls"].double() - 2.0 * its) / 2.0).sum().item() / its.sum().item()
     ref = broyden(lt.LevenbergMarquardt(lt.BlockCholesky(2)))
@@ -2798,7 +2913,7 @@ def phase_batched_autodiff(dev, smi):
                                   output_length=M, autodiff=autodiff,
                                   min_converged_fraction=FRAC, data_axis=(None, 0))
 
-        raw = run_route(label, run, smi, B_MAIN)
+        raw, _ = run_route(label, run, smi, B_MAIN)
         conv = raw["converged"].double().mean().item()
         err = rel(raw["minimizer"], truth).median().item()
         print(f"  converged {conv:.6f}, median rel error vs truth {err:.3e}")

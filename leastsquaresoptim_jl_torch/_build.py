@@ -47,6 +47,8 @@ _SIGNATURES = {
     "lso_gram_f32": [_P, _P, _L, _I, _L, _I, _P, _P, _P],
     "lso_gram_bf16": [_P, _P, _L, _I, _L, _I, _P, _P, _P],
     "lso_gram_config": [_I, _I, ctypes.POINTER(_I)],
+    "lso_varpro_exp2_eval_f32": [_P, _P, _I, _I, ctypes.c_double, ctypes.c_double,
+                                 _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

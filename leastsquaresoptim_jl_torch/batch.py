@@ -45,6 +45,7 @@ def solve_batch(
     fused=None,
     stop_check_every: int = 1,
     device=None,
+    _evaluators=None,
 ):
     """Solve a batch of independent fits sharing one residual function.
 
@@ -67,6 +68,10 @@ def solve_batch(
 
     ``device`` is where numpy or list ``x0_batch`` goes (default: the
     current CUDA device; a tensor keeps its device).
+
+    ``_evaluators`` is private to ``curve_fit_batch``, which passes the
+    fused kernel's evaluations (ops/varpro_exp2.py) in place of the
+    vmapped ones of ``f`` (``problem._batched_problem``).
 
     Returns the raw result dict with a leading batch axis on every leaf.
     """
@@ -108,6 +113,7 @@ def solve_batch(
     problem = _batched_problem(
         f, x0_batch, data_batch, data_axis, output_length=output_length,
         autodiff=autodiff, materialize_jacobian=materialize_jacobian,
+        evaluators=_evaluators,
     )
     return _solve_lockstep(
         problem, optimizer, opts, float(min_converged_fraction), fused,

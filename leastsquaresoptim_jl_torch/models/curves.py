@@ -362,13 +362,34 @@ def _separable_irls_batch(
             model, x_user, y, beta, weights=w, optimizer=optimizer,
             options=options, lower=lower, upper=upper,
             min_converged_fraction=min_converged_fraction, gridded=gridded,
-            separable=True, stop_check_every=stop_check_every,
+            separable=True, stop_check_every=stop_check_every, _irls_round=True,
         )
         return raw, raw["minimizer"]
 
     raw, rr, rounds = _irls_rounds(solve, resid, p0, w_user, loss, f_scale,
                                    irls_iterations)
     return dict(raw, ssr=torch.sum(rr * rr, dim=-1), irls_rounds=rounds)
+
+
+def _exp2_kernel_route(sep, y, alpha0, weighted, optimizer, irls_round):
+    """Whether a separable batch evaluates on the fused kernel of
+    ops/varpro_exp2.py, by what the inputs show: the model's basis is a
+    gridded two-term exponential sum on y's samples (``sep.grid``), y and
+    the start are float32 tensors on a card, y (B, m) with m within the
+    kernel's, there are no weights, the loss is linear (not a round of a
+    robust fit's IRLS, whose later rounds are weighted: every round
+    evaluates one way), and the optimizer differentiates no residual
+    itself (geodesic LM nests forward-mode derivatives of it, which a CUDA
+    kernel does not give). Every other batch keeps the vmapped
+    evaluation."""
+    from ..ops import varpro_exp2
+
+    grid = sep.grid
+    return (grid is not None and grid.k == 2 and y.ndim == 2
+            and grid.m == y.shape[-1] <= varpro_exp2.MAX_M
+            and y.dtype == alpha0.dtype == torch.float32 and varpro_exp2.on_card(y)
+            and not weighted and not irls_round
+            and not getattr(optimizer, "geodesic", False))
 
 
 def _uniform_grid(x_user, m):
@@ -421,6 +442,7 @@ def curve_fit_batch(
     fused=None,
     stop_check_every: int = 1,
     device=None,
+    _irls_round: bool = False,
 ):
     """Fit a batch of independent curves in one lockstep solve.
 
@@ -444,6 +466,7 @@ def curve_fit_batch(
     residual in ``robustify``; the separable route runs IRLS around the
     linear-loss VarPro solve (up to ``irls_iterations`` reweighted rounds;
     the returned ``ssr`` is the true robust objective per fit).
+    ``_irls_round`` is private to that route: it marks its rounds.
 
     ``lower``/``upper`` are full-parameter box bounds shared by the batch.
     Separable fits take bounds on the nonlinear parameters only (the
@@ -517,12 +540,18 @@ def curve_fit_batch(
             # Column slices, not a list index (which is copied from the host).
             alpha0 = torch.cat([p0[..., i:i + 1] for i in sep.nl], dim=-1)
             weighted = weights is not None
+            evaluators = None
+            if _exp2_kernel_route(sep, ydata, alpha0, weighted, optimizer, _irls_round):
+                from ..ops import varpro_exp2
+
+                evaluators = varpro_exp2.evaluators(ydata, sep.grid)
             raw = solve_batch(
                 reduced_residual(sep, weighted=weighted), alpha0, data,
                 optimizer, options=options, output_length=m,
                 lower=lower_nl, upper=upper_nl,
                 data_axis=axes, min_converged_fraction=min_converged_fraction,
                 fused=fused, stop_check_every=stop_check_every,
+                _evaluators=evaluators,
             )
             rec = assemble_minimizer(sep, weighted=weighted)
             raw = dict(raw)

@@ -27,6 +27,7 @@ import torch
 from ..ops.linalg import spd_chol_solve
 
 __all__ = [
+    "ExpSumGrid",
     "SeparableModel",
     "SEPARABLE",
     "gridded_separable",
@@ -36,6 +37,19 @@ __all__ = [
     "canonical_sorted_exp_pairs",
     "canonical_sorted_gauss_triples",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpSumGrid:
+    """What a basis is, where it is a gridded exponential sum: k columns
+    ``exp(-alpha_j x_i)`` on the uniform grid ``x_i = t0 + i dt``, i < m.
+    A batched solve reads it to route the evaluation (the fused kernel of
+    ops/varpro_exp2.py takes k = 2)."""
+
+    k: int
+    t0: float
+    dt: float
+    m: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,13 +63,16 @@ class SeparableModel:
     permutable terms), applied to the minimizer after assembly.
     ``guess(x, y) -> full beta start`` is a data-driven initializer,
     batched over y's leading axes; with it, curve_fit and curve_fit_batch
-    take ``p0="auto"`` for this model (models/init.py)."""
+    take ``p0="auto"`` for this model (models/init.py). ``grid``
+    describes a gridded exponential-sum basis (``ExpSumGrid``), None for
+    any other."""
 
     lin: Tuple[int, ...]
     nl: Tuple[int, ...]
     phi: Callable
     canonical: Optional[Callable] = None
     guess: Optional[Callable] = None
+    grid: Optional[ExpSumGrid] = None
 
     def __post_init__(self):
         lin, nl = tuple(self.lin), tuple(self.nl)
@@ -143,18 +160,20 @@ def exp_sum_separable(k: int, *, t0=None, dt=None, m=None) -> SeparableModel:
     Interleaved ``(amp, rate)`` layout, canonicalized to rates ascending.
     The linear dimension is p = k. With ``t0``/``dt``/``m`` the basis is
     evaluated by the gridded exp (ops/special.py) on the uniform grid
-    ``x_i = t0 + i*dt``. k <= 3 carries the integral-regression ``guess``
-    (models/init.guess_exp_sum)."""
+    ``x_i = t0 + i*dt`` and the model carries its ``ExpSumGrid``. k <= 3
+    carries the integral-regression ``guess`` (models/init.guess_exp_sum)."""
     if k < 1:
         raise ValueError(f"exp_sum_separable needs k >= 1, got {k}")
     lin = tuple(range(0, 2 * k, 2))
     nl = tuple(range(1, 2 * k, 2))
+    grid = None
     if t0 is not None or dt is not None or m is not None:
         if t0 is None or dt is None or m is None:
             raise ValueError("gridded exp_sum_separable needs all of t0, dt, m")
         from ..ops.special import make_exp_grid
 
-        e = make_exp_grid(float(t0), float(dt), int(m))
+        grid = ExpSumGrid(k, float(t0), float(dt), int(m))
+        e = make_exp_grid(grid.t0, grid.dt, grid.m)
         phi = lambda x, a: torch.stack([e(-a[j]) for j in range(k)], dim=-1)  # noqa: E731
     else:
         phi = lambda x, a: torch.stack(  # noqa: E731
@@ -165,7 +184,7 @@ def exp_sum_separable(k: int, *, t0=None, dt=None, m=None) -> SeparableModel:
         from .init import guess_exp_sum
 
         guess = lambda x, y: guess_exp_sum(x, y, k)  # noqa: E731
-    return SeparableModel(lin, nl, phi, canonical_sorted_exp_pairs, guess)
+    return SeparableModel(lin, nl, phi, canonical_sorted_exp_pairs, guess, grid)
 
 
 def gauss_sum_separable(k: int) -> SeparableModel:
@@ -207,7 +226,8 @@ _GRIDDED_SEPARABLE = ("exp_saturation", "exp_decay", "exp_sum_2", "exp_sum_3")
 
 def gridded_separable(name: str, t0: float, dt: float, m: int) -> SeparableModel:
     """SEPARABLE entry with the basis evaluated via the gridded-exp op on
-    the uniform grid ``x_i = t0 + i*dt``."""
+    the uniform grid ``x_i = t0 + i*dt``; the exponential sums carry their
+    ``ExpSumGrid``."""
     if name not in _GRIDDED_SEPARABLE:
         raise ValueError(
             f"no gridded separable variant for {name!r}; supported: "
@@ -217,19 +237,22 @@ def gridded_separable(name: str, t0: float, dt: float, m: int) -> SeparableModel
 
     e = make_exp_grid(t0, dt, m)
     base = SEPARABLE[name]
+    grid = None
     if name == "exp_saturation":
         phi = lambda x, a: _col(1.0 - e(-a[0]))  # noqa: E731
     elif name == "exp_sum_2":
         phi = lambda x, a: torch.stack([e(-a[0]), e(-a[1])], dim=-1)  # noqa: E731
+        grid = ExpSumGrid(2, float(t0), float(dt), int(m))
     elif name == "exp_sum_3":
         phi = lambda x, a: torch.stack([e(-a[0]), e(-a[1]), e(-a[2])], dim=-1)  # noqa: E731
+        grid = ExpSumGrid(3, float(t0), float(dt), int(m))
     else:  # exp_decay
 
         def phi(x, a):
             col = e(-a[0])
             return torch.stack([col, torch.ones_like(col)], dim=-1)
 
-    return SeparableModel(base.lin, base.nl, phi, base.canonical, base.guess)
+    return SeparableModel(base.lin, base.nl, phi, base.canonical, base.guess, grid)
 
 
 def split_nl_bounds(sm: SeparableModel, lower, upper):

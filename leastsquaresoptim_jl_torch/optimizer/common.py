@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import config
+from .. import config, tracing
 
 # Status codes surfaced in the raw result.
 STATUS_OK = 0
@@ -170,6 +170,9 @@ class EvalSchedule(NamedTuple):
     ``ssr_carry`` (``fused="ssr"``): additionally carry the SSR as a
     two-float (hi, lo) pair (ops/linalg.sumabs2_dd) and drop the residual
     vector from the carry; ``ared`` becomes a dd difference.
+    ``gram_ssr_fn``: under the ssr carry, the problem's own evaluation of
+    (G, b, ssr_hi, ssr_lo) where it has one (the fused kernel), which then
+    replaces ``res_gram_fn`` and gives no residual; None otherwise.
     ``carry_fcur``: the residual at x rides the carry. Unfused with a
     shared primal (forward mode), the loop instead re-linearizes at x on
     every fresh iteration and takes the residual from that evaluation (the
@@ -182,6 +185,7 @@ class EvalSchedule(NamedTuple):
     fused_flat: bool
     carry_fcur: bool
     ssr_carry: bool = False
+    gram_ssr_fn: Optional[object] = None
 
 
 def build_eval_schedule(problem, solver_tag, fused) -> EvalSchedule:
@@ -210,12 +214,19 @@ def build_eval_schedule(problem, solver_tag, fused) -> EvalSchedule:
             "schedule only — use the Cholesky solver"
         )
     res_jac_fn = problem.res_jac_fn
-    res_gram_fn = None
-    if fused_gram:
+    res_gram_fn = gram_ssr_fn = None
+    # Every fused-Gram evaluation is an ``lso/eval/gram`` span, at site
+    # ``kernel`` where the problem's own evaluation runs, else ``eager``.
+    if ssr_carry and problem.gram_ssr_fn is not None and problem.row_reduce is None:
+        def gram_ssr_fn(xx):
+            with tracing.span("lso/eval/gram", site="kernel"):
+                return problem.gram_ssr_fn(xx)
+    elif fused_gram:
         def res_gram_fn(xx):
-            r, J = res_jac_fn(xx)
-            G, b = gram_and_rhs(J, r)
-            return r, G, b
+            with tracing.span("lso/eval/gram", site="eager"):
+                r, J = res_jac_fn(xx)
+                G, b = gram_and_rhs(J, r)
+                return r, G, b
 
     carry_fcur = not ssr_carry and (
         bool(fused)
@@ -223,34 +234,51 @@ def build_eval_schedule(problem, solver_tag, fused) -> EvalSchedule:
         or not problem.res_jac_shares_primal
     )
     return EvalSchedule(
-        res_jac_fn, res_gram_fn, fused_gram, fused_flat, carry_fcur, ssr_carry
+        res_jac_fn, res_gram_fn, fused_gram, fused_flat, carry_fcur, ssr_carry,
+        gram_ssr_fn,
     )
+
+
+def gram_eval(sched: EvalSchedule, x):
+    """The fused-Gram evaluation at x: ``(f, G, b, ssr)``, ``ssr`` the
+    (hi, lo) SSR pair under the ssr carry (else None). Where the schedule
+    has ``gram_ssr_fn``, f is None; else the pair is ``sumabs2_dd(f)``."""
+    from ..ops.linalg import sumabs2_dd
+
+    if sched.gram_ssr_fn is not None:
+        G, b, hi, lo = sched.gram_ssr_fn(x)
+        return None, G, b, (hi, lo)
+    f, G, b = sched.res_gram_fn(x)
+    return f, G, b, (sumabs2_dd(f) if sched.ssr_carry else None)
 
 
 def seed_eval(sched: EvalSchedule, problem, x):
     """Initial model evaluation for the loop carry.
 
-    Returns ``(fcur, gram0, grhs0, jstate0, jac0)``: gram0/grhs0 are None
-    unless ``fused_gram``; jstate0 is J at x under ``fused_flat`` and else
-    the linearization point x (the Jacobian is recomputed from it, never
-    carried). ``jac0`` is the sparse Jacobian at x for a sparse problem
-    (the JAX package seeds its sparse carry with it, and the first
-    iteration uses it instead of evaluating J again), else None. A
+    Returns ``(fcur, gram0, grhs0, jstate0, jac0, ssr0)``: gram0/grhs0 are
+    None unless ``fused_gram``; jstate0 is J at x under ``fused_flat`` and
+    else the linearization point x (the Jacobian is recomputed from it,
+    never carried). ``jac0`` is the sparse Jacobian at x for a sparse
+    problem (the JAX package seeds its sparse carry with it, and the first
+    iteration uses it instead of evaluating J again), else None. ``ssr0``
+    is the (hi, lo) SSR pair under the ssr carry, else None; fcur is then
+    None where the schedule's evaluation gives none (``gram_eval``). A
     row-sharded residual holds this process's rows, so its length is not
     held to the global ``problem.m``."""
-    gram0 = grhs0 = jac0 = None
+    gram0 = grhs0 = jac0 = ssr0 = None
     jstate0 = x
     if sched.fused_gram:
-        fcur, gram0, grhs0 = sched.res_gram_fn(x)
+        fcur, gram0, grhs0, ssr0 = gram_eval(sched, x)
     elif sched.fused_flat:
         fcur, jstate0 = sched.res_jac_fn(x)
     else:
         fcur = problem.residual_fn(x)
         if problem.jacobian_is_sparse:
             jac0 = problem.jac_fn(x)
-    if problem.row_reduce is None and fcur.shape[-1] != problem.m:
+    if (fcur is not None and problem.row_reduce is None
+            and fcur.shape[-1] != problem.m):
         raise ValueError(
             f"residual function returns {fcur.shape[-1]} values per fit, "
             f"expected {problem.m}"
         )
-    return fcur, gram0, grhs0, jstate0, jac0
+    return fcur, gram0, grhs0, jstate0, jac0, ssr0

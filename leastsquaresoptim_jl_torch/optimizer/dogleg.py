@@ -53,7 +53,6 @@ from ..ops.linalg import (
     dd_diff,
     maxabs_projected_gradient,
     row_sum,
-    sumabs2_dd,
     wdot,
     wnorm,
 )
@@ -67,6 +66,7 @@ from .common import (
     active_set_refinement,
     assess_convergence,
     build_eval_schedule,
+    gram_eval,
     init_trace,
     resolve_tolerances,
     seed_eval,
@@ -99,7 +99,7 @@ def loop_pieces(
     solve_gn, solve_damped = solver_fns(solver_tag)
 
     sched = build_eval_schedule(problem, solver_tag, fused)
-    res_jac_fn, res_gram_fn = sched.res_jac_fn, sched.res_gram_fn
+    res_jac_fn = sched.res_jac_fn
     fused_gram, fused_flat = sched.fused_gram, sched.fused_flat
     carry_fcur, ssr_carry = sched.carry_fcur, sched.ssr_carry
 
@@ -119,9 +119,9 @@ def loop_pieces(
     def full(value, dtype):
         return torch.full(batch_shape, value, dtype=dtype, device=x.device)
 
-    fcur, gram0, grhs0, jstate0, jac0 = seed_eval(sched, problem, x)
+    fcur, gram0, grhs0, jstate0, jac0, ssr0 = seed_eval(sched, problem, x)
     if ssr_carry:
-        ssr, ssr_lo0 = sumabs2_dd(fcur)
+        ssr, ssr_lo0 = ssr0
     else:
         ssr = row_sum(fcur * fcur, reduce)
     false = full(False, torch.bool)
@@ -295,14 +295,14 @@ def loop_pieces(
         # cancellation-free (see the LM loop).
         x_trial = x - dx
         if fused_gram:
-            ftrial, gtrial, btrial = res_gram_fn(x_trial)
+            ftrial, gtrial, btrial, trial_pair = gram_eval(sched, x_trial)
         elif fused_flat:
             ftrial, jtrial = res_jac_fn(x_trial)
         else:
             ftrial = residual_fn(x_trial)
         f_calls = c["f_calls"] + 1
         if ssr_carry:
-            trial_ssr, trial_lo = sumabs2_dd(ftrial)
+            trial_ssr, trial_lo = trial_pair
             ared = dd_diff(ssr, c["ssr_lo"], trial_ssr, trial_lo)
         else:
             trial_ssr = row_sum(ftrial * ftrial, reduce)

@@ -153,7 +153,12 @@ class LeastSquaresProblem:
     global row count, and ``row_reduce`` sums a tensor of per-process
     partial sums over the processes, completing every sum over rows
     (ops/linalg.row_sum). ``probe_salt`` (the process's rank) keeps the
-    processes' Hutchinson probes apart."""
+    processes' Hutchinson probes apart.
+
+    ``gram_ssr_fn(x) -> (J'J, J'r, ssr_hi, ssr_lo)`` is one evaluation of
+    what the fused-Gram ``"ssr"`` schedule carries, where the problem has
+    one (the fused kernel of ops/varpro_exp2.py); None otherwise, and the
+    schedule forms them from ``res_jac_fn``."""
 
     residual_fn: Callable
     x0: torch.Tensor
@@ -168,6 +173,7 @@ class LeastSquaresProblem:
     colnorms_fn: Optional[Callable] = None
     row_reduce: Optional[Callable] = None
     probe_salt: int = 0
+    gram_ssr_fn: Optional[Callable] = None
     # Set when the user's parameters are structured: maps the flat solver
     # vector back to the user's structure (``_pytree.ravel``).
     unravel: Optional[Callable] = None
@@ -301,6 +307,7 @@ def _batched_problem(
     autodiff: str = "forward",
     materialize_jacobian: bool = True,
     g: Optional[Callable] = None,
+    evaluators=None,
 ) -> LeastSquaresProblem:
     """The problem of a batch of independent fits, x0 of shape (B, n):
     ``f(x)`` or ``f(x, data)`` is written for one fit and mapped over the
@@ -310,6 +317,11 @@ def _batched_problem(
     differences the one-fit rule vmapped, so that each fit's Jacobian is
     (m, n), never the (B, m, B, n) one of the whole batch.
 
+    ``evaluators`` (``residual_fn``, ``res_jac_fn``, ``gram_ssr_fn`` of the
+    whole batch, as ops/varpro_exp2.evaluators makes them) replace the
+    vmapped evaluation of ``f``, which they compute; the problem then takes
+    J from ``res_jac_fn``.
+
     A user Jacobian ``g`` is refused: the JAX package's ``solve_batch``
     takes none, so none of its entry points reaches a batched ``g=``."""
     _check_autodiff(autodiff)
@@ -318,6 +330,17 @@ def _batched_problem(
             "a user Jacobian g= for a batch of fits is not ported: no entry "
             "point of the JAX package reaches it (its solve_batch takes no "
             "g=); pass g= for one fit (optimize / least_squares_problem)"
+        )
+    if evaluators is not None:
+        return LeastSquaresProblem(
+            residual_fn=evaluators.residual_fn,
+            x0=x0_batch,
+            m=int(output_length),
+            jac_fn=lambda xb: evaluators.res_jac_fn(xb)[1],
+            materialize_jacobian=materialize_jacobian,
+            res_jac_fn=evaluators.res_jac_fn,
+            res_jac_shares_primal=True,
+            gram_ssr_fn=evaluators.gram_ssr_fn,
         )
     one = _one_fit_residual(f if data is not None else (lambda xx, _: f(xx)))
     in_dims = (0, data_axis if data is not None else None)
