@@ -17,8 +17,8 @@ Phases (each prints its own lines, its header with the seconds since the
 script started; any failure raises and exits non-zero):
 
 1. Card and build: the card's name and power limit (nvidia-smi), and the
-   time to build the CUDA kernels from leastsquaresoptim_jl_torch/csrc/,
-   with phases 5c and 6b's measurement builds (every nvcc at once).
+   time to build the CUDA kernels from leastsquaresoptim_jl_torch/csrc/
+   (every nvcc at once).
 2. The fused VarPro LM kernel against its plain PyTorch version on the
    card, for every basis it compiles (exp_saturation, power,
    michaelis_menten) at m = 64, 37 and 1024 (lanes_per_fit(m) lanes per
@@ -73,10 +73,6 @@ script started; any failure raises and exits non-zero):
    and share, and the registers and spills ptxas reported for that
    instance. G = 32 (a warp per fit) is the in-run baseline; the G that
    lanes_per_fit(64) picks must beat it.
-5c. A measurement build of kernel_varpro (LSO_VARPRO_PROBE=1: every run
-   masked, as if none were whole) against the kernel at G = 2, 4, 8 on
-   phase 5b's launch: equal states, and both times (median of 20, CUDA
-   events, in the order kernel, variant, variant, kernel).
 6. The Gram kernel (gram_and_rhs(use_pallas=True)) and its plain version
    against a float64 Gram on the card, at (2^20, n) for n = 256, 128, 64,
    32, at config #3's (8192, 1024), at the tail shapes (1300, 32) and
@@ -92,13 +88,6 @@ script started; any failure raises and exits non-zero):
    warm-up calls; the bound (the larger of the bytes of J, y and the
    result over 3.35 TB/s and the m n (n + 1) FLOPs of the upper triangle
    over 495 TFLOP/s in TF32, 989 in bf16) and the kernel's share of it.
-6b. Measurement builds of gram.cu (LSO_GRAM_PROBE, see its header), at
-   the float32 shapes of phase 6 with m >= 8192, launched alone into
-   preallocated scratch (phase 6's timing): the error of a kernel that
-   keeps one wgmma accumulator for a whole row chunk, beside the kernel's
-   (which must be within phase 6's limit); the split pass's cost alone
-   (no wgmmas, with and without the pass) and on the kernel's critical
-   path (the kernel with and without the pass).
 7. The row-sharded Gram on a one-rank NCCL group at (2^20, 256): equal to
    gram_and_rhs(use_pallas=True) bit for bit, the kernel's counter moved
    (reset just before), and the normal-equations solution within 1e-4
@@ -466,10 +455,9 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), device 0: {name}")
     t0 = time.perf_counter()
-    n_compiles = build_everything()
     _build.load()
-    print(f"kernels and phases 5c and 6b's measurement builds built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s ({n_compiles} nvcc started at once)")
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"({len(list(_build.SOURCE_DIR.glob('*.cu')))} nvcc started at once)")
     ptxas = ptxas_report(_build.build_log)
     varpro = {k: v for k, v in ptxas.items() if "varpro_lm_p1" in k}
     for name_, (regs, st, ld) in ptxas.items():
@@ -578,10 +566,8 @@ def main():
           f"{bound_k / ms_k:.1%} of it (at most 50% without FMA contraction); no single "
           f"library call computes it [{smi}]")
     phase_lanes_sweep(x, Y, state0, tols, ptxas, smi)
-    phase_mask_probe(x, Y, state0, tols, smi)
 
     gram_cmp = phase_gram(dev, smi)
-    phase_gram_probes(dev, smi)
     gram_launches = phase_sharded_gram(dev)
     phase_single_fit(dev, smi)
     phase_matrix_free(dev, smi)
@@ -1020,82 +1006,6 @@ def phase_lanes_sweep(x, Y, state0, tols, ptxas, smi):
           f"than a warp per fit, G=32 ({ms[32]:.4f} ms)")
 
 
-def variant_launch(lib):
-    """``_launch_kernel`` in float32 or float16 through another build's
-    library."""
-    from leastsquaresoptim_jl_torch import config
-    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
-
-    def launch(basis, x, Y, state, k_iters, tols, max_iters, lanes=None):
-        B, m = Y.shape
-        dt = Y.dtype
-        lanes = kv._check_lanes(m, lanes, dt)
-        fn = getattr(lib, {torch.float32: "lso_kernel_varpro_f32",
-                           torch.float16: "lso_kernel_varpro_f16"}[dt])
-        consts = [config.in_dtype(v, dt) for v in (
-            *tols, config.MIN_STEP_QUALITY, config.MIN_TRUST_REGION_RADIUS,
-            config.MAX_TRUST_REGION_RADIUS)]
-        err = fn(
-            x.data_ptr(), Y.data_ptr(), state.data_ptr(), B, m, k_iters, *consts[:3],
-            max_iters, *consts[3:], kv.BASES[basis][2], lanes,
-            kv._check_block_fits(None, lanes, dt), torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"the measurement build failed to launch: CUDA error {err}")
-        return state
-    return launch
-
-
-VARPRO_PROBE_FLAGS = ["-DLSO_VARPRO_PROBE=1"]
-# The float32 and float64 sources phase 5c's measurement build takes.
-VARPRO_PROBE_SOURCES = ["kernel_varpro.cu", "kernel_varpro_michaelis_menten.cu",
-                        "kernel_varpro_power.cu"]
-
-
-def gram_probe_flags():
-    return {k: [f"-DLSO_GRAM_PROBE={v}"] for k, v in GRAM_PROBES.items()}
-
-
-def build_everything():
-    """Phase 1's build: the package's kernels and the measurement builds
-    of phases 5c and 6b, every nvcc started at once (those phases then load
-    their libraries from the cache). Returns the number of compiles."""
-    from leastsquaresoptim_jl_torch import _build
-
-    src = _build.SOURCE_DIR
-    jobs = [(sorted(src.glob("*.cu")), []),
-            ([src / name for name in VARPRO_PROBE_SOURCES], VARPRO_PROBE_FLAGS)]
-    jobs += [([src / "gram.cu"], flags) for flags in gram_probe_flags().values()]
-    _build._build(jobs)
-    return sum(len(sources) for sources, _ in jobs)
-
-
-def phase_mask_probe(x, Y, state0, tols, smi):
-    """Phase 5c: the kernel without its unmasked path (LSO_VARPRO_PROBE=1)
-    against the kernel, on phase 5b's launch."""
-    from leastsquaresoptim_jl_torch import _build
-    from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
-
-    header("== phase 5c: kernel_varpro with every run masked (LSO_VARPRO_PROBE=1)")
-    t0 = time.perf_counter()
-    lib = _build.load_variants(VARPRO_PROBE_SOURCES, {"masked": VARPRO_PROBE_FLAGS})["masked"]
-    print(f"  loaded (built in phase 1 unless run alone) in {time.perf_counter() - t0:.2f} s")
-    masked = variant_launch(lib)
-    for lanes in (2, 4, 8):
-        sk = kv._launch_kernel("exp_saturation", x, Y, state0.clone(), K, tols,
-                               float(ITERATIONS), lanes=lanes)
-        sm = masked("exp_saturation", x, Y, state0.clone(), K, tols,
-                    float(ITERATIONS), lanes=lanes)
-        torch.cuda.synchronize()
-        check(torch.equal(sk, sm), f"G={lanes}: the masked build's state equals the kernel's")
-        for fn in (kv._launch_kernel, masked):
-            launch_ms(fn, x, Y, state0, tols, 3, lanes)  # warm-up
-        order = (kv._launch_kernel, masked, masked, kv._launch_kernel)
-        t = [launch_ms(fn, x, Y, state0, tols, 20, lanes) for fn in order]
-        print(f"  G={lanes}: kernel {t[0]:.4f} and {t[3]:.4f} ms, every run masked "
-              f"{t[1]:.4f} and {t[2]:.4f} ms (median of 20, CUDA events, in that "
-              f"order: kernel, masked, masked, kernel) [{smi}]")
-
-
 def loop_ms(fn, n=20, warmup=3):
     """Mean time of ``fn()`` in ms over ``n`` back-to-back calls between two
     CUDA events, after ``warmup`` calls."""
@@ -1267,53 +1177,6 @@ def phase_gram(dev, smi):
                 main = dict(max_abs_err=(Gk - Gr).abs().max().item(), **times)
         del J, y, G64, b64
     return main
-
-
-# LSO_GRAM_PROBE values of gram.cu's measurement builds.
-GRAM_PROBES = {"one accumulator per chunk": 1, "no wgmma": 2,
-               "no wgmma, no split pass": 3, "no split pass": 4}
-
-
-def phase_gram_probes(dev, smi):
-    """Phase 6b: gram.cu's measurement builds against the kernel."""
-    from leastsquaresoptim_jl_torch import _build
-    from leastsquaresoptim_jl_torch.ops import gram
-
-    header("== phase 6b: Gram kernel measurement builds (LSO_GRAM_PROBE)")
-    t0 = time.perf_counter()
-    libs = _build.load_variants(["gram.cu"], gram_probe_flags())
-    libs = {"kernel": _build.load(), **libs}
-    print(f"  {len(GRAM_PROBES)} builds loaded (built in phase 1 unless run alone) in "
-          f"{time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(6)
-    for (m, n), dt in GRAM_SHAPES:
-        if dt != torch.float32 or m < 8192:
-            continue
-        J = torch.tensor(rng.standard_normal((m, n), dtype=np.float32), device=dev)
-        y = torch.tensor(rng.standard_normal(m, dtype=np.float32), device=dev)
-        G64, b64 = J.double().mT @ J.double(), J.double().mT @ y.double()
-        rows, chunks = gram._plan(libs["kernel"], J)
-        gp = torch.empty((chunks, n, n), device=dev)
-        bp = torch.empty((chunks, n), device=dev)
-        errs, ms = {}, {}
-        for label, lib in libs.items():
-            def launch(lib=lib):
-                gram._enqueue(lib, J, y, rows, gp, bp)
-            if label in ("kernel", "one accumulator per chunk"):
-                launch()
-                errs[label] = gram_errors(gp.sum(dim=0), bp.sum(dim=0), G64, b64, y.double())
-            ms[label] = loop_ms(launch)
-        print(f"  ({m}, {n}) float32, {chunks} chunks of {rows} rows: G err "
-              f"{errs['kernel'][0]:.3e} (kernel), "
-              f"{errs['one accumulator per chunk'][0]:.3e} (one accumulator per chunk)")
-        check(max(errs["kernel"]) <= GRAM_LIMIT, f"({m}, {n}): kernel launch alone "
-              f"within {GRAM_LIMIT:g} of float64")
-        print(f"  ({m}, {n}) launch alone, ms: "
-              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
-              + f"; split pass alone {ms['no wgmma'] - ms['no wgmma, no split pass']:.4f}, "
-              f"on the critical path {ms['kernel'] - ms['no split pass']:.4f} "
-              f"(means of 20 back-to-back launches, CUDA events) [{smi}]")
-        del J, y, G64, b64, gp, bp
 
 
 def free_port():

@@ -13,10 +13,6 @@ library is loaded with ``ctypes``; pointers and the stream are passed as
 ``-fmad=false`` keeps every multiply and add separately rounded, as the
 plain PyTorch versions of the kernels are, so that a kernel and its plain
 version can be compared bit for bit on the card.
-
-``load_variants`` builds some sources again under extra flags (build-time
-defines such as gram.cu's ``LSO_GRAM_PROBE``), each variant into a library
-of its own, for measurements that the package itself never calls.
 """
 
 from __future__ import annotations
@@ -66,63 +62,43 @@ def _nvcc():
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def _build(jobs):
-    """Build each (sources, extra flags) of ``jobs`` into a shared library
-    unless it is cached; every ``nvcc -c`` of every job is started at once.
-    Returns the libraries' paths."""
+def _build():
+    """Build every ``csrc/*.cu`` into a shared library unless it is cached;
+    every ``nvcc -c`` is started at once. Returns the library's path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    pending, paths = [], []
-    for sources, extra in jobs:
-        flags = [*NVCC_FLAGS, *extra]
-        digest = hashlib.sha256(" ".join(flags).encode())
-        for src in [*sources, *sorted(SOURCE_DIR.glob("*.cuh"))]:
-            digest.update(src.name.encode())
-            digest.update(src.read_bytes())
-        lib_path = BUILD_DIR / f"kernels_{digest.hexdigest()[:16]}.so"
-        paths.append(lib_path)
-        if lib_path.exists():
-            continue
-        tag = f"{lib_path.stem}.{os.getpid()}"
-        procs = []
-        for src in sources:
-            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-            cmd = [_nvcc(), *flags, "-c", "-o", str(obj), str(src)]
-            procs.append((cmd, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        pending.append((lib_path, tag, procs))
+    sources = sorted(SOURCE_DIR.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [*sources, *sorted(SOURCE_DIR.glob("*.cuh"))]:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"kernels_{digest.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    procs = []
+    for src in sources:
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     # Wait for every compile before reporting any failure.
-    done = [(lib_path, tag, procs,
-             [" ".join(cmd) + "\n" + proc.communicate()[0] for cmd, _, proc in procs])
-            for lib_path, tag, procs in pending]
-    for _, _, procs, logs in done:
-        for (_, _, proc), log in zip(procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed to build the kernels:\n" + log)
-    for lib_path, tag, procs, logs in done:
-        tmp = BUILD_DIR / f"{tag}.tmp.so"
-        cmd = [_nvcc(), "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    logs = [" ".join(cmd) + "\n" + proc.communicate()[0] for cmd, _, proc in procs]
+    for (_, _, proc), log in zip(procs, logs):
         if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed to link the kernels:\n"
-                + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-            )
-        for _, obj, _ in procs:
-            obj.unlink()
-        lib_path.with_suffix(".log").write_text("\n".join(logs))
-        os.replace(tmp, lib_path)
-    return paths
-
-
-def _open(lib_path):
-    lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
+            raise RuntimeError("nvcc failed to build the kernels:\n" + log)
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    cmd = [_nvcc(), "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            "nvcc failed to link the kernels:\n"
+            + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        )
+    for _, obj, _ in procs:
+        obj.unlink()
+    lib_path.with_suffix(".log").write_text("\n".join(logs))
+    os.replace(tmp, lib_path)
+    return lib_path
 
 
 def load():
@@ -130,18 +106,13 @@ def load():
     global _lib, build_log
     if _lib is not None:
         return _lib
-    (lib_path,) = _build([(sorted(SOURCE_DIR.glob("*.cu")), [])])
+    lib_path = _build()
     log_path = lib_path.with_suffix(".log")
     build_log = log_path.read_text() if log_path.exists() else ""
-    _lib = _open(lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
     return _lib
-
-
-def load_variants(sources, variants):
-    """``{name: extra nvcc flags}`` -> ``{name: library}``: the ``csrc/``
-    files named in ``sources`` alone, built once per variant (all compiles
-    started together)."""
-    names = list(variants)
-    files = [SOURCE_DIR / src for src in sources]
-    paths = _build([(files, list(variants[k])) for k in names])
-    return {k: _open(p) for k, p in zip(names, paths)}

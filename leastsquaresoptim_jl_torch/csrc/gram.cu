@@ -52,7 +52,8 @@
 // - Accumulator precision: wgmma's accumulator drifts over a long sum (in
 //   float32 from 2.4e-5 to 2.2e-4 of the Cauchy-Schwarz scale over the
 //   row chunks of thousands of rows of chip_smoke.py phase 6, against 1e-5
-//   allowed; phase 6b). So each stage starts a fresh accumulator
+//   allowed, with one accumulator for a whole row chunk). So each stage
+//   starts a fresh accumulator
 //   (scale-d = 0) and adds it into a float32 register sum.
 // - J'y stays exact float32: diagonal-tile blocks sum it with fmaf from the
 //   staged tile, never through TF32.
@@ -65,17 +66,6 @@
 // The tensor map is encoded on the host with cuTensorMapEncodeTiled, found
 // through cudaGetDriverEntryPoint, so the library needs no -lcuda. The
 // input is float32 or bfloat16; accumulation is float32.
-//
-// LSO_GRAM_PROBE (a build-time define, 0 by default) builds a variant that
-// is only timed or checked, never called by the package (chip_smoke.py
-// phase 6b builds them): 1 keeps one wgmma accumulator for a whole row
-// chunk (no per-stage promotion); 2 leaves out the wgmmas (and so the
-// register A of off-diagonal tiles): loads, split pass and J'y; 3 leaves out
-// the wgmmas and the split pass: loads and J'y; 4 leaves out the split pass
-// only (the wgmmas read a stale split buffer). 2 to 4 give wrong sums.
-#ifndef LSO_GRAM_PROBE
-#define LSO_GRAM_PROBE 0
-#endif
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -86,10 +76,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr bool kPromote = LSO_GRAM_PROBE != 1;
-constexpr bool kMma = LSO_GRAM_PROBE != 2 && LSO_GRAM_PROBE != 3;
-constexpr bool kSplitPass = LSO_GRAM_PROBE != 3 && LSO_GRAM_PROBE != 4;
 
 // Rows per stage (BK), stages in the ring and blocks per SM (what fits in
 // shared memory), by input type and tile width. ops/gram.py reads them
@@ -570,24 +556,21 @@ __global__ void __launch_bounds__(Layout<T, TN>::kThreads, Layout<T, TN>::kBlock
                   to_f32(ys[i]), jy);
     }
     const uint32_t split = L::kSplitOff + (step & 1) * L::kSplitBufBytes;
-    if constexpr (L::kSplit && kSplitPass) {
+    if constexpr (L::kSplit) {
       // B's split (panel a on the diagonal, where it is also A, else panel
       // b). The buffer written here was last read by step s - 2's wgmmas,
       // which every warpgroup finished before step s - 1's barrier.
       split_of(diag ? pa : sm + raw(s, 1), sm + split, diag ? 2.0f : 1.0f);
     }
     wgmma_wait_all();
-    if (kPromote && step > 0) {
+    if (step > 0) {
 #pragma unroll
       for (int i = 0; i < TN / 2; ++i) sum[i] += acc[i];
     }
-    // The first wgmma of a stage starts a fresh accumulator (of the chunk,
-    // without promotion).
-    const int fresh = kPromote ? 0 : step;
     // Off the diagonal: A's fragments, now that step s - 1's wgmmas, which
     // read the previous ones, are done.
     uint32_t fb[BK / 8][4], fs[BK / 8][4];
-    if constexpr (L::kSplit && TN == 128 && kMma) {
+    if constexpr (L::kSplit && TN == 128) {
       if (!diag) {
 #pragma unroll
         for (int ks = 0; ks < BK / 8; ++ks) {
@@ -609,7 +592,6 @@ __global__ void __launch_bounds__(Layout<T, TN>::kThreads, Layout<T, TN>::kBlock
     // refill that stage.
     if (tid == 0 && step >= 1 && step - 1 + S < nsteps) issue(step - 1 + S);
 
-    if constexpr (!kMma) continue;
     wgmma_fence();
     if constexpr (L::kSplit) {
       // Off the diagonal G takes small'big + big'small + big'big, small
@@ -626,10 +608,10 @@ __global__ void __launch_bounds__(Layout<T, TN>::kThreads, Layout<T, TN>::kBlock
           const uint32_t off = ks * TN * 64;
           const uint64_t db_big = make_desc(b_big + off, 128, 256, 0);
           if constexpr (TN == 32) {
-            wgmma_tf32<TN>(acc, make_desc(a_big + off, 128, 256, 0), db_big, fresh + ks > 0);
+            wgmma_tf32<TN>(acc, make_desc(a_big + off, 128, 256, 0), db_big, ks > 0);
           } else {
             wgmma_tf32<TN>(acc, make_desc(a_big + TN * 32 + off, 128, 256, 0), db_big,
-                           fresh + ks > 0);
+                           ks > 0);
             wgmma_tf32<TN>(acc, make_desc(a_big + off, 128, 256, 0), db_big, 1);
           }
         }
@@ -639,7 +621,7 @@ __global__ void __launch_bounds__(Layout<T, TN>::kThreads, Layout<T, TN>::kBlock
           const uint32_t off = ks * TN * 64;
           const uint64_t db_big = make_desc(b_big + off, 128, 256, 0);
           const uint64_t db_small = make_desc(b_big + TN * 32 + off, 128, 256, 0);
-          wgmma_tf32_rs_n128(acc, fs[ks], db_big, fresh + ks > 0);
+          wgmma_tf32_rs_n128(acc, fs[ks], db_big, ks > 0);
           wgmma_tf32_rs_n128(acc, fb[ks], db_small, 1);
           wgmma_tf32_rs_n128(acc, fb[ks], db_big, 1);
         }
@@ -650,7 +632,7 @@ __global__ void __launch_bounds__(Layout<T, TN>::kThreads, Layout<T, TN>::kBlock
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         wgmma_bf16<TN>(acc, make_desc(a0 + kk * 2048, L::kBoxBytes, 1024, 1),
-                       make_desc(b0 + kk * 2048, L::kBoxBytes, 1024, 1), fresh + kk > 0);
+                       make_desc(b0 + kk * 2048, L::kBoxBytes, 1024, 1), kk > 0);
       }
     }
     wgmma_commit();

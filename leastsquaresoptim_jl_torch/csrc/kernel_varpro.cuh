@@ -68,20 +68,12 @@
 // version bit for bit. It takes the state columns, the limits and the
 // basis codes from this header.
 //
-// LSO_VARPRO_PROBE (a build-time define, 0 by default) builds a float32
-// and float64 variant for measurement: 1 masks every run, as if no run
-// were whole.
-//
 // The state (B, 8) is updated IN PLACE: each group reads and writes only
 // its own fit's row. The constants (tolerances, max_iters,
 // MIN_STEP_QUALITY and the trust region radius bounds) come from the
 // caller, so they cannot drift from config.py. m <= 1024.
 
 #pragma once
-
-#ifndef LSO_VARPRO_PROBE
-#define LSO_VARPRO_PROBE 0
-#endif
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -250,7 +242,7 @@ varpro_lm_p1_kernel(Args<T> a) {
   const T tiny = Num<T>::tiny();
   const int first = gl * a.L;
   // Every lane's run is whole (uniform over the grid): no masks needed.
-  const bool full = LSO_VARPRO_PROBE != 1 && a.L == S && G * S == a.m;
+  const bool full = a.L == S && G * S == a.m;
   T u[S], y[S];
   bool valid[S];
 #pragma unroll

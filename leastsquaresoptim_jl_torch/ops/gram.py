@@ -138,24 +138,6 @@ def _sms(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _enqueue(lib, J, y, rows_per_chunk, gp, bp):
-    """Enqueue one launch of the Gram kernel in ``lib`` on J's current
-    stream, into the float32 scratch gp (chunks, n, n) and bp (chunks, n);
-    raises if it was refused. Counts nothing."""
-    m, n = J.shape
-    fn = {torch.float32: lib.lso_gram_f32, torch.bfloat16: lib.lso_gram_bf16}[J.dtype]
-    with torch.cuda.device(J.device):
-        stream = torch.cuda.current_stream(J.device).cuda_stream
-        err = fn(J.data_ptr(), y.data_ptr(), m, n, rows_per_chunk, gp.shape[0],
-                 gp.data_ptr(), bp.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"Gram kernel launch failed: error {err} (a cudaError_t; 9000: "
-            f"no tensor-map encoder in libcuda; 10000 + a CUresult: the "
-            f"tensor map was refused)"
-        )
-
-
 def _launch_kernel(J, y):
     """One launch of the CUDA Gram kernel, then the sum over row chunks."""
     global launches
@@ -174,7 +156,17 @@ def _launch_kernel(J, y):
     rows_per_chunk, chunks = _plan(lib, J)
     gp = torch.empty((chunks, n, n), dtype=torch.float32, device=J.device)
     bp = torch.empty((chunks, n), dtype=torch.float32, device=J.device)
-    _enqueue(lib, J, y, rows_per_chunk, gp, bp)
+    fn = {torch.float32: lib.lso_gram_f32, torch.bfloat16: lib.lso_gram_bf16}[J.dtype]
+    with torch.cuda.device(J.device):
+        stream = torch.cuda.current_stream(J.device).cuda_stream
+        err = fn(J.data_ptr(), y.data_ptr(), m, n, rows_per_chunk, chunks,
+                 gp.data_ptr(), bp.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"Gram kernel launch failed: error {err} (a cudaError_t; 9000: "
+            f"no tensor-map encoder in libcuda; 10000 + a CUresult: the "
+            f"tensor map was refused)"
+        )
     launches += 1
     return gp.sum(dim=0).to(J.dtype), bp.sum(dim=0).to(J.dtype)
 

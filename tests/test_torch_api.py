@@ -14,7 +14,7 @@ tests/test_api.py pins them.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

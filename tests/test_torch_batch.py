@@ -17,7 +17,7 @@ file runs 20000.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

@@ -18,7 +18,7 @@ run both optimizers with and without a 0.75 fraction stop.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

@@ -21,7 +21,7 @@ route's minimizer, the JAX test's criterion).
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

@@ -13,7 +13,7 @@ This file imports neither JAX nor the JAX package:
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

@@ -12,7 +12,7 @@ name.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

@@ -4,7 +4,7 @@ each floating dtype (exact: both compute from the same eps)."""
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

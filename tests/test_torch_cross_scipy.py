@@ -10,7 +10,7 @@ value, ssr <= (1 + 1e-6) x 2 x scipy's cost (scipy's cost is ssr / 2), and
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 from scipy.optimize import least_squares as scipy_ls

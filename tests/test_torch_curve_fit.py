@@ -20,7 +20,7 @@ PyTorch port against the JAX package, in float64 on the CPU.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import jax
 import jax.numpy as jnp

@@ -21,7 +21,7 @@ iterations and converged masks."""
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import os
 import subprocess

@@ -9,7 +9,7 @@ package on the same data with three outliers per fit."""
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

@@ -19,9 +19,7 @@ the batch x rows layout of ``solve_sharded``, on the CPU.
   matches (1e-8) and which reaches the truth (1e-4, the JAX test's gate).
 """
 
-import pytest
-
-torch = pytest.importorskip("torch")
+from _torch_cpu import one_thread_children, torch
 
 import importlib.util
 import multiprocessing
@@ -68,7 +66,8 @@ def test_entry_on_the_cpu_equals_the_jax_entry():
 
 def test_dryrun_multichip_over_gloo():
     t0 = time.monotonic()
-    dryrun_multichip(2, device="cpu", timeout=TIMEOUT_S)
+    with one_thread_children():
+        dryrun_multichip(2, device="cpu", timeout=TIMEOUT_S)
     assert time.monotonic() - t0 < TIMEOUT_S
 
 
@@ -123,8 +122,9 @@ def test_batch_by_rows_equals_the_single_process_batch(tmp_path):
     ctx = multiprocessing.get_context("spawn")
     port = _free_port()
     procs = [ctx.Process(target=_worker, args=(r, port, str(tmp_path))) for r in range(2)]
-    for p in procs:
-        p.start()
+    with one_thread_children():
+        for p in procs:
+            p.start()
     deadline = time.monotonic() + TIMEOUT_S
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))

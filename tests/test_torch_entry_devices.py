@@ -11,7 +11,7 @@ current card, not to card 0."""
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

@@ -14,7 +14,7 @@ package's examples where they meet.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import importlib.util
 import os

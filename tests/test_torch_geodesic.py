@@ -15,7 +15,7 @@ cases.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

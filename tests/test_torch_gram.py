@@ -9,7 +9,7 @@ on the card only (tests/test_torch_kernel_gpu.py)."""
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

@@ -23,7 +23,7 @@ in float64 on the CPU unless stated.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import jax
 import jax.numpy as jnp

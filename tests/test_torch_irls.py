@@ -18,7 +18,7 @@ CPU.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

@@ -9,7 +9,7 @@ so it also runs on a machine without them:
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

@@ -8,7 +8,7 @@ O(1) terms, so reduction order shows at ~1e-15 absolute)."""
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

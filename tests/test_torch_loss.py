@@ -15,7 +15,7 @@ CPU (float32 for the overflow clamp).
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import jax
 import jax.numpy as jnp

@@ -23,7 +23,7 @@ shown to fail on the same input in the same test.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import functools
 

@@ -17,7 +17,7 @@ port is held to the JAX package's joint route on the same data instead.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import functools
 

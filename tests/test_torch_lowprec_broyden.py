@@ -7,7 +7,7 @@ tests/test_torch_lowprec.py's."""
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 from test_torch_lowprec import assert_same_fit, both, broyden
 

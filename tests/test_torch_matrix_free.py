@@ -26,7 +26,7 @@ says so.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import dataclasses
 

@@ -19,7 +19,7 @@ cond(A) and 0.76 eps on these shapes).
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import jax
 import jax.numpy as jnp

@@ -8,7 +8,7 @@ test_torch_minpack_parity.py.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

@@ -25,9 +25,7 @@ JAX reference about 3 s of it.
 The workers import no JAX.
 """
 
-import pytest
-
-torch = pytest.importorskip("torch")
+from _torch_cpu import one_thread_children, torch
 
 import os
 import socket
@@ -159,13 +157,14 @@ def test_four_process_checkpoint_resume(tmp_path):
     script.write_text(_WORKER.replace("__REPO__", repo))
     port = _free_port()
     ckdir = str(tmp_path / "ckpt")
-    procs = [
-        subprocess.Popen(
-            [sys.executable, str(script), str(i), str(WORLD), str(port), ckdir],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        )
-        for i in range(WORLD)
-    ]
+    with one_thread_children():
+        procs = [
+            subprocess.Popen(
+                [sys.executable, str(script), str(i), str(WORLD), str(port), ckdir],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for i in range(WORLD)
+        ]
     outs = []
     try:
         for p in procs:

@@ -15,7 +15,7 @@ test_torch_nist_lm.py, so that the two 32-run scoreboards run in parallel).
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import jax
 import jax.numpy as jnp

@@ -17,7 +17,7 @@ ROADMAP.md Queue 3. The scoreboard over the same runs needs 31 of 32
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import functools
 

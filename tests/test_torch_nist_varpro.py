@@ -24,7 +24,7 @@ package, in float64 on the CPU.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import jax
 import jax.numpy as jnp

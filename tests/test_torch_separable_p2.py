@@ -26,7 +26,7 @@ stated.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import jax
 import jax.numpy as jnp

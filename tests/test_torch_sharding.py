@@ -16,7 +16,7 @@ not either.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import one_thread_children, torch
 
 import multiprocessing
 import os
@@ -80,8 +80,9 @@ def _run_workers(tmp_path, m, n, from_env=False):
     procs = [ctx.Process(target=_worker,
                          args=(r, port, J, y, str(tmp_path), from_env))
              for r in range(WORLD)]
-    for p in procs:
-        p.start()
+    with one_thread_children():
+        for p in procs:
+            p.start()
     for p in procs:
         p.join(TIMEOUT_S)
     alive = [p.is_alive() for p in procs]
@@ -209,8 +210,9 @@ def sharded_results(tmp_path_factory):
     port = _free_port()
     procs = [ctx.Process(target=_solve_worker, args=(r, port, str(out)))
              for r in range(WORLD)]
-    for p in procs:
-        p.start()
+    with one_thread_children():
+        for p in procs:
+            p.start()
     for p in procs:
         p.join(TIMEOUT_S)
     alive = [p.is_alive() for p in procs]

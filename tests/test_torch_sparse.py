@@ -15,7 +15,7 @@ LM(LSMR(maxiter=60)) run.
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

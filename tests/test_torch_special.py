@@ -6,7 +6,7 @@ zero, and the reverse rule and torch.func.vmap of the same Function."""
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import numpy as np
 

@@ -5,7 +5,7 @@ share the profiler's clock."""
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import leastsquaresoptim_jl_torch as lt  # noqa: E402
 from leastsquaresoptim_jl_torch import tracing  # noqa: E402

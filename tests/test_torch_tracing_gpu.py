@@ -21,7 +21,7 @@ from collections import Counter
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_cpu import torch
 
 import leastsquaresoptim_jl_torch as lt  # noqa: E402
 from leastsquaresoptim_jl_torch import tracing  # noqa: E402
