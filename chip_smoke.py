@@ -1839,6 +1839,18 @@ def time_batch(run, label, smi, B):
     return best
 
 
+def device_launches(run, kernel):
+    """The launches of ``kernel`` in the device trace of one ``run()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name)
+
+
 def profile_batch(run, raw, label, smi):
     """One profiler pass; CUDA kernels per lockstep iteration."""
     kernels = profile_solve(run, label, smi)
@@ -2116,14 +2128,16 @@ def run_route(label, run, smi, B, exp2=False):
     launches of kernel_varpro and the Gram, and of varpro_exp2_eval one a
     lockstep iteration, one for the seed and one for the final Jacobian
     where ``exp2`` (else none), then times and one profiler pass. Returns
-    the result and varpro_exp2_eval's launches."""
+    the result and varpro_exp2_eval's launches. The host counts the first
+    two; varpro_exp2_eval is counted in the device trace of a second call,
+    since a lockstep iteration replayed from the batch driver's CUDA graph
+    launches on the card and not from the host."""
     from leastsquaresoptim_jl_torch.ops import gram
     from leastsquaresoptim_jl_torch.ops import kernel_varpro as kv
-    from leastsquaresoptim_jl_torch.ops import varpro_exp2 as ve
 
-    kv.launches = gram.launches = ve.launches = 0
+    kv.launches = gram.launches = 0
     secs, raw = sync_time(run)
-    launches = (kv.launches, gram.launches, ve.launches)
+    launches = (kv.launches, gram.launches, device_launches(run, "varpro_exp2_eval"))
     its = int(raw['iterations'].max())
     print(f"  {label}: launches (kernel_varpro, gram, varpro_exp2_eval) {launches}, lockstep "
           f"iterations {its}, converged {raw['converged'].double().mean().item():.6f}, "

@@ -8,18 +8,21 @@ another place (``device="cpu"`` for the CPU). Without a card and without
 ``device`` an entry point raises: it never falls back to the CPU on its
 own.
 
-A single fit on a card runs on a stream of its own (``on_solve_stream``),
-not on the default stream: a CUDA graph can only be captured on another
-stream, and the reverse products of a matrix-free operator run on the
-stream its forward pass was recorded on, so the operator has to be built
-on the stream that LSMR captures its iteration on (ops/lsmr_core.py).
+A single fit, and a batch's lockstep loop, on a card runs on a stream of
+its own (``on_solve_stream``), not on the default stream: a CUDA graph
+can only be captured on another stream (``batch.py`` captures a batch's
+iteration), and the reverse products of a matrix-free operator run on
+the stream its forward pass was recorded on, so the operator has to be
+built on the stream that LSMR captures its iteration on
+(ops/lsmr_core.py).
 Each thread holds one such stream per card, and one memory pool that
 every graph it captures there shares, so that each capture reuses the
 memory of the ones before it. A pool lives while a graph captured into it
 does (a fresh pool a capture would leave its memory reserved until the
 allocator's cache is emptied, and a pool whose graphs were all released
 cannot be captured into again), so the thread also holds, per card, a
-one-kernel graph whose only use is to keep the pool alive.
+one-kernel graph whose only use is to keep the pool alive. Both graphs,
+LSMR's and the batch's, are captured by ``capture``.
 """
 
 from __future__ import annotations
@@ -65,9 +68,10 @@ def on_solve_stream(device, run):
     ``device`` (see the module); ``run()`` alone off a card. The stream
     first waits for the caller's, and the caller's waits for it at the
     end, so the result is ready in the caller's stream order. The
-    result's tensors came from the solve stream's memory, so each is
-    marked as used on the caller's stream: its memory is not handed out
-    again until the caller's work queued before its release is done."""
+    result's tensors, nested ones included, came from the solve stream's
+    memory, so each is marked as used on the caller's stream: its memory
+    is not handed out again until the caller's work queued before its
+    release is done."""
     if device.type != "cuda":
         return run()
     index = _index(device)
@@ -81,10 +85,18 @@ def on_solve_stream(device, run):
             out = run()
     finally:
         caller.wait_stream(stream)
-    for value in out.values():
-        if isinstance(value, torch.Tensor) and value.layout == torch.strided:
-            value.record_stream(caller)
+    _record(out, caller)
     return out
+
+
+def _record(value, stream):
+    """``record_stream(stream)`` on every strided tensor in ``value``."""
+    if isinstance(value, torch.Tensor):
+        if value.layout == torch.strided:
+            value.record_stream(stream)
+    elif isinstance(value, (dict, list, tuple)):
+        for item in value.values() if isinstance(value, dict) else value:
+            _record(item, stream)
 
 
 def graph_pool(device):
@@ -101,3 +113,45 @@ def graph_pool(device):
         anchor.capture_end()
         _held.anchors[index] = anchor
     return anchor.pool()
+
+
+def capture(device, fn):
+    """One CUDA graph of ``fn()`` on the current stream, captured into this
+    thread's graph pool of ``device``: the graph, or None where the
+    capture raised. Nothing runs on the card while capturing, so a capture
+    that raised has changed no tensor.
+
+    A read back to the host inside ``fn`` raises under the sync debug mode
+    "error" before it reaches the card, and the capture then ends cleanly.
+    An operation that reaches the card and that a graph cannot hold (a
+    library creating its handle, as cuSOLVER's first call on a thread does)
+    invalidates the capture, and ``CUDAGraph.capture_end`` raises. Two
+    things are then left behind: the allocator still routes the stream's
+    allocations to the pool, so that is ended here; and the pool takes no
+    capture again (``capture_begin`` raises "already recording"), so the
+    thread drops the graph that keeps it alive and its next capture starts
+    a fresh pool. The old pool's memory stays reserved: the failed capture
+    holds it."""
+    graph = torch.cuda.CUDAGraph()
+    try:
+        pool = graph_pool(device)
+        graph.capture_begin(pool=pool)
+    except RuntimeError:  # the default stream takes no capture
+        return None
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    done = False
+    try:
+        fn()
+        done = True
+    except RuntimeError:  # a body that cannot be captured
+        pass
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            graph.capture_end()
+        except RuntimeError:  # invalidated on the card
+            done = False
+            torch._C._cuda_endAllocateToPool(_index(device), pool)
+            del _held.anchors[_index(device)]
+    return graph if done else None

@@ -59,7 +59,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from .. import config, tracing
-from .._device import graph_pool
+from .._device import capture
 
 
 def _leaves(x):
@@ -312,38 +312,22 @@ def lsmr(
 
 
 def _capture(body, c, device):
-    """One CUDA graph of ``body(c, 2)`` on the current stream, ending by
+    """One CUDA graph of ``body(c, 2)`` (``_device.capture``), ending by
     copying the new carry into ``c``'s tensors: ``(graph, rule flags)``,
-    or None where the capture raised. Copying back in place is safe: after
-    the first iteration every carry entry is a tensor of its own (``body``
-    makes each anew; ``minrbar`` is still ``lsmr``'s own initial scalar).
+    or None where the capture raised, leaving ``c`` as it was. Copying
+    back in place is safe: after the first iteration every carry entry is
+    a tensor of its own (``body`` makes each anew; ``minrbar`` is still
+    ``lsmr``'s own initial scalar)."""
+    out = []
 
-    A read back to the host inside a product raises under the sync debug
-    mode "error" before it reaches the card, so the capture ends cleanly;
-    one that reached the card would leave the graph pool marked as
-    recording, and every later capture there would fall back."""
-    g = torch.cuda.CUDAGraph()
-    try:
-        g.capture_begin(pool=graph_pool(device))
-    except RuntimeError:  # the default stream takes no capture
-        return None
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    rules = None
-    try:
+    def step():
         new, rules = body(c, 2)
         for key, old in c.items():
             _t_map(lambda o, n: o.copy_(n), old, new[key])
-        del new
-    except RuntimeError:  # a product that cannot be captured
-        rules = None
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
-        try:
-            g.capture_end()
-        except RuntimeError:  # the capture was invalidated
-            rules = None
-    return None if rules is None else (g, rules)
+        out.append(rules)
+
+    graph = capture(device, step)
+    return None if graph is None else (graph, out[0])
 
 
 def _batched_loop(c, body, normar0, maxiter, live):

@@ -16,7 +16,10 @@ and every device-to-host read
 card (ops/lsmr_core.py) marks its CUDA graph: ``lso/lsmr/capture``, one
 span a capture attempt, at site ``graph`` where the graph was made and
 ``fallback`` where the capture raised and the loop went on eagerly; and
-``lso/lsmr/replay``, one span a replayed iteration. Outside ``record()``
+``lso/lsmr/replay``, one span a replayed iteration. A batch's lockstep
+loop on a card (batch.py) marks its graph alike: ``lso/batch/capture``
+at site ``graph`` or ``fallback``, and ``lso/batch/replay`` inside each
+replayed ``lso/batch/iter``. Outside ``record()``
 tracing is off: ``span`` returns one shared no-op context manager and
 does nothing else: no clock read, no allocation, no profiler call.
 
